@@ -5,7 +5,11 @@ The host layers (MPS import, GeneralForm, presolve, standardization,
 lowering, exact certification) are shared with ``relp_tpu`` through
 :mod:`relp_tpu_torch._host`; the simplex engine runs on a torch device, with
 the steepest-edge pricing scan as a hand-written CUDA kernel
-(:mod:`relp_tpu_torch.ops.price_scan`).  This package never imports jax.
+(:mod:`relp_tpu_torch.ops.price_scan`).  Scenario batches
+(:func:`relp_tpu_torch.parallel.solve_batch`) run many LPs in lockstep,
+through the hand-written batched-pivot kernels
+(:mod:`relp_tpu_torch.ops.batch_pivot`) wherever their shape gate takes
+the batch.  This package never imports jax.
 """
 
 from relp_tpu_torch._host import Solution, import_file, load_general_form

@@ -67,8 +67,11 @@ class SolverConfig:
     # Torch device: None means "cuda"; "cpu" only when asked for.
     platform: Optional[str] = None
 
-    # Kept so configurations move between packages; the port's steepest
-    # edge pricing always goes through relp_tpu_torch.ops.fused_price_scan.
+    # Both kept so configurations move between packages; neither selects
+    # anything.  The port's steepest edge pricing always goes through
+    # relp_tpu_torch.ops.fused_price_scan, and solve_batch runs its cold
+    # phases through the batched-pivot kernels (relp_tpu_torch.ops.
+    # batch_pivot) wherever parallel.batch.megakernel_applicable holds.
     pallas_scan: bool = False
     pallas_batch: bool = False
     dual_restart: bool = True

@@ -16,34 +16,23 @@ the (M, N) tableau once for 6 M N flops.  It splits M over blocks and sums
 the partials in fixed order, so it is deterministic, and it accumulates with
 plain FMAs in f32 (f32 and bf16 inputs) or f64, never TF32.  It takes any N.
 
-It is compiled at first use with ``nvcc`` into ``build/relp_tpu_torch/`` of
-the checkout and loaded with ``ctypes``.
+It is compiled at first use, with the port's other kernels, by
+``relp_tpu_torch.ops._build`` and loaded with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
 
+from relp_tpu_torch.ops import _build
+
 # Launches of the CUDA kernel since the last reset (one per call that reached
 # the device); the plain version does not count.
 LAUNCHES = 0
-# nvcc's output of the build that produced the loaded library (register and
-# spill counts from -Xptxas -v), and the seconds that build took (0.0 when a
-# cached library was loaded).
-BUILD_LOG = ""
-BUILD_SECONDS = 0.0
 
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "price_scan.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "relp_tpu_torch"
 _ENTRIES = {
     torch.float32: "relp_price_scan_f32",
     torch.float64: "relp_price_scan_f64",
@@ -70,40 +59,13 @@ def fused_price_scan_reference(P, A, c, gamma, gamma_q):
     return d, torch.maximum(g, 1.0 + abar * abar)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    return "/usr/local/cuda/bin/nvcc"
-
-
 def build() -> ctypes.CDLL:
-    """Compile (once per source content) and load the kernel library."""
-    global _LIB, BUILD_LOG, BUILD_SECONDS
+    """The port's kernel library (built at first use), with this kernel's
+    entry points declared."""
+    global _LIB
     if _LIB is not None:
         return _LIB
-    source = _SOURCE.read_bytes()
-    tag = hashlib.sha256(source).hexdigest()[:16]
-    lib_path = _BUILD_DIR / f"libprice_scan-{tag}.so"
-    if not lib_path.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            "-o", str(tmp), str(_SOURCE),
-        ]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_SECONDS = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {_SOURCE}:\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        BUILD_LOG = proc.stdout + proc.stderr
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = _build.build()
     for name in _ENTRIES.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]

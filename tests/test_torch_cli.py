@@ -5,6 +5,7 @@ import os
 
 from relp_tpu.__main__ import main as jax_main
 from relp_tpu_torch.__main__ import main
+from tests.test_torch_batch import one_torch_thread  # noqa: F401  (autouse)
 
 KNAP6 = os.path.join(os.path.dirname(__file__), "data", "knap6.mps")
 EXACT_FIELDS = ("status", "objective", "objective_float", "certified",

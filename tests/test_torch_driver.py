@@ -29,6 +29,7 @@ from relp_tpu_torch.testing import generated_lp
 from tests.test_fuzz_differential import _random_instance
 from tests.test_pipeline_problem1 import MPS_LITERAL, _problem_2_matrix_data
 from tests.test_simplex_small import _gf
+from tests.test_torch_batch import one_torch_thread  # noqa: F401  (autouse)
 
 DTYPES = ("float32", "float64")
 SMALL = dict(pad_to=8, chunk_size=50, refactor_period=50)  # conftest cpu_config

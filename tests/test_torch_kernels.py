@@ -33,6 +33,7 @@ from relp_tpu_torch.simplex import state as tstate
 from relp_tpu_torch.simplex.state import state_from_numpy, state_to_numpy
 from relp_tpu_torch.testing import generated_lp
 from tests.test_fuzz_differential import _random_instance
+from tests.test_torch_batch import one_torch_thread  # noqa: F401  (autouse)
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 TOL = 1e-9

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 from relp_tpu.ops import fused_price_scan as jax_fused_price_scan
 from relp_tpu_torch.ops import price_scan
 from tests.test_pallas_ops import _formula
+from tests.test_torch_batch import one_torch_thread  # noqa: F401  (autouse)
 
 SHAPES = [(8, 128), (64, 256), (96, 1280)]
 DTYPES = {"float32": (np.float32, 1e-5), "float64": (np.float64, 1e-12)}
