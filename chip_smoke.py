@@ -17,40 +17,53 @@ Takes no arguments and needs no network.  Phases, one line each (or more):
                    batched-pivot kernels at the families' shapes);
   3. kernel        fused_price_scan against fused_price_scan_reference at
                    several shapes and at the main path's, f32 / f64 / bf16,
-                   with CUDA-event times;
-  4. batch/kernel  both batched-pivot kernels against
+                   with CUDA-event times, and torch.matmul(P, A) (TF32 off,
+                   the product without the d/gamma epilogue) as yardstick;
+  4. probe         the precision probe (relp_tpu_torch.tools.
+                   probe_dot_precision): single-pass TF32 above 1e-6
+                   relative error, 3xTF32 and the outer product within it;
+  5. batch/kernel  both batched-pivot kernels against
                    batched_pivot_chunk_reference from the same state, one
                    25-pivot chunk with and without stop_at_zero, at the JAX
                    tests' toy shapes and the two family shapes from the
                    phase-1 start, and without it from the families' phase-2
                    start: identical bases, statuses and iteration counts,
-                   the float state within tolerance, bitwise repeatable;
+                   the float state within tolerance, bitwise repeatable, and
+                   at the family shapes the same bits on the one shared
+                   tableau (batch stride 0) as on B stacked copies;
                    CUDA-event times;
-  5. main/small    `solve --json tests/data/knap6.mps` through the CLI
+  6. main/small    `solve --json tests/data/knap6.mps` through the CLI
                    (exact -30, certified) and a max-flow network through
                    solve_relaxation (flow 4);
-  6. main/real     the generated LP of relp_tpu_torch.testing at m=384,
+  7. main/real     the generated LP of relp_tpu_torch.testing at m=384,
                    n=1536 through solve_general_form: certified, the pinned
                    exact-objective digest, and HiGHS agreement to 1e-6;
-  7. chunk         marginal per-pivot time of run_chunk at the 1024 x 4096
+  8. chunk         marginal per-pivot time of run_chunk at the 1024 x 4096
                    bench problem, kernel path and plain path;
-  8. batch/resident, batch/blocked
+  9. batch/resident, batch/blocked
                    solve_batch (default config) on the two scenario
                    families of relp_tpu_torch.testing (256 x 128x384 and
                    128 x 512x1408 lowered): every LP certified, the pinned
                    digest of the exact objectives, HiGHS on three scenarios,
-                   and the kernel of each family launched;
-  9. batch/warm    the resident family's LP with +-40% rhs wobbles,
+                   the kernel of each family launched, peak device memory;
+ 10. batch/memory  peak device memory of each family's solve_batch (no
+                   certification) with the one shared tableau and with B
+                   stacked copies of it (the first port's layout): the same
+                   results, the copies' bytes saved;
+ 11. batch/warm    the resident family's LP with +-40% rhs wobbles,
                    warm-started from the base optimum: every scenario needs
                    dual pivots; its pinned digest, no phase 1, the dual and
                    the phase-2 chunks on the batched torch path and no
                    kernel launch;
- 10. batch/chunk   marginal pivots/s of the whole batch from the phase-2
+ 12. batch/chunk   marginal pivots/s of the whole batch from the phase-2
                    start, kernel path and plain path, at both family shapes,
                    over a window in which every LP pivots.
 
-Then a JSON line describing each kernel, and as the last line
-{"ok": true, "device": {...}}.  Any failure raises: the exit code is then
+Then a JSON line describing each kernel (six: the scan, the two
+batched-pivot kernels and the probe's three) with its time, its plain
+version's, its bound (the larger of its bytes at 3.35 TB/s and its
+operations at the H100's peak for their type) and the library yardstick,
+and as the last line {"ok": true, "device": {...}}.  Any failure raises: the exit code is then
 non-zero and no result line is printed.
 """
 
@@ -66,6 +79,22 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+# Published peaks of one H100 SXM (700 W; NVIDIA's data sheet, dense):
+# device memory and the rates of the operations the kernels do (f32 and
+# f64 on the vector units, TF32 on the tensor cores).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+F64_FLOPS = 34e12
+TF32_FLOPS = 495e12
+
+
+def _bound(bytes_moved: float, flops: float, peak: float = F32_FLOPS):
+    """(bound_ms, bound_by): the least time for the bytes at the memory
+    rate and for the operations at ``peak``, whichever is larger."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def _line(phase: str, **fields) -> None:
@@ -122,6 +151,7 @@ def phase_build():
             "build", kernel=f"batch_pivot_kernel<{str(resident).lower()}>",
             shape=f"{M}x{N}",
             dynamic_smem_bytes=batch_pivot.smem_bytes(M, N, resident=resident),
+            inverse_rows_in_smem=M if resident else batch_pivot.blocked_rows(M, N),
             limit=batch_pivot.SMEM_LIMIT,
         )
 
@@ -173,7 +203,7 @@ def _graph_ms(torch, fn, calls: int = 20, flush=None) -> float:
 def main_path_shape():
     """(M, N) of the lowered real-size generated LP: the shape at which the
     main path calls the scan kernel."""
-    from relp_tpu_torch._host import pad_to_multiple
+    from relp_tpu_torch.linalg.device import pad_to_multiple
     from relp_tpu_torch.testing import REAL_SIZE, generated_lp
 
     gf = generated_lp(**REAL_SIZE)
@@ -232,19 +262,79 @@ def phase_kernel(torch, np, device):
             errs.append(f"{name}:{err / (1.0 + scale):.3e}")
         kern = lambda: price_scan.fused_price_scan(P, A, c, g, gq)  # noqa: E731
         plain = lambda: price_scan.fused_price_scan_reference(P, A, c, g, gq)  # noqa: E731
+        library = lambda: torch.matmul(P, A)  # noqa: E731  (no epilogue)
         kern_ms, plain_ms = _graph_ms(torch, kern), _graph_ms(torch, plain)
+        library_ms = _graph_ms(torch, library)
         cold = (_graph_ms(torch, kern, flush=flush), _graph_ms(torch, plain, flush=flush))
-        times[(M, N, dtype)] = (kern_ms, plain_ms)
+        size = A.element_size()
+        # Reads A, P, c and gamma once, writes d and gamma: 6 M N operations.
+        bound_ms, bound_by = _bound((M * N + 3 * M + 4 * N) * size, 6.0 * M * N,
+                                    F64_FLOPS if dtype == torch.float64 else F32_FLOPS)
+        times[(M, N, dtype)] = (kern_ms, plain_ms, library_ms, bound_ms, bound_by)
         tableau_gb = M * N * A.element_size() / 1e9
         _line(
             "kernel", shape=f"{M}x{N}", dtype=str(dtype).replace("torch.", ""),
             rel_err=",".join(errs), tol=f"{tol:g}*(1+scale)",
             kernel_ms=f"{kern_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+            matmul_ms=f"{library_ms:.5f}", bound_ms=f"{bound_ms:.5f}",
+            bound_by=bound_by, bound_share=f"{bound_ms / kern_ms:.3f}",
             kernel_cold_ms=f"{cold[0]:.5f}", plain_cold_ms=f"{cold[1]:.5f}",
             kernel_GBps=f"{tableau_gb / (kern_ms * 1e-3):.1f}",
             kernel_cold_GBps=f"{tableau_gb / (cold[0] * 1e-3):.1f}",
         )
     return main_shape, errors, times
+
+
+def phase_probe(torch, device):
+    """The precision probe's main path (relp_tpu_torch.tools.
+    probe_dot_precision.run) with its launch counts from 0, its checks,
+    then each kernel's time beside its plain version (numpy f64 on the
+    host), its bound and a library call: torch.matmul with TF32 allowed
+    (tf32), torch.matmul in full f32 (tf32x3: the same product, by another
+    method), torch.outer (outer)."""
+    from relp_tpu_torch.tools import probe_dot_precision as probe
+
+    for kind in probe.KINDS:
+        probe.LAUNCHES[kind] = 0
+    rel = probe.run(device)
+    launches = dict(probe.LAUNCHES)
+    _check(1e-6 < rel["tf32"] < 1e-2, f"probe tf32 error {rel['tf32']:.3e}")
+    _check(rel["tf32x3"] <= 1e-6 and rel["outer"] <= 1e-6,
+           f"probe errors {rel}")
+    a, b = probe.inputs(device)
+    M = a.shape[0]
+    library = {
+        "tf32": lambda: torch.matmul(a, b),
+        "tf32x3": lambda: torch.matmul(a, b),
+        "outer": lambda: torch.outer(a[:, 0], b[0, :]),
+    }
+    bounds = {
+        "tf32": _bound(3 * M * M * 4, 2.0 * M ** 3, TF32_FLOPS),
+        "tf32x3": _bound(3 * M * M * 4, 6.0 * M ** 3, TF32_FLOPS),
+        "outer": _bound((2 * M + M * M) * 4, 1.0 * M * M, F32_FLOPS),
+    }
+    out = {}
+    for kind in probe.KINDS:
+        exact = probe.probe_dot_reference(kind, a, b)
+        err = float((probe.probe_dot(kind, a, b).double().cpu() - exact).abs().max())
+        ms = _graph_ms(torch, lambda: probe.probe_dot(kind, a, b))
+        t0 = time.perf_counter()
+        for _ in range(5):
+            probe.probe_dot_reference(kind, a, b)
+        plain_ms = (time.perf_counter() - t0) / 5 * 1e3
+        torch.backends.cuda.matmul.allow_tf32 = kind == "tf32"
+        try:
+            library_ms = _graph_ms(torch, library[kind])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        out[kind] = dict(launches=launches[kind], max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bounds[kind][0],
+                         bound_by=bounds[kind][1], library_ms=library_ms)
+        _line("probe", kind=kind, shape=f"{M}x{M}", rel_err=f"{rel[kind]:.3e}",
+              launches=launches[kind], kernel_ms=f"{ms:.5f}",
+              plain_host_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.5f}",
+              bound_ms=f"{bounds[kind][0]:.5f}", bound_by=bounds[kind][1])
+    return out
 
 
 def phase_main_small(torch):
@@ -269,7 +359,7 @@ def phase_main_small(torch):
     # the JAX package's example reports max flow 4 on it.
     from fractions import Fraction as F
 
-    from relp_tpu.data.network import MaxFlowPrimal
+    from relp_tpu_torch.data.network import MaxFlowPrimal
 
     adjacency = [
         [F(0), F(0), F(0), F(0)],
@@ -342,13 +432,12 @@ def phase_main_real(torch, np):
 
 
 def phase_chunk_loop(torch, np, device, times):
-    from __graft_entry__ import _synthetic_problem
-
     from relp_tpu_torch.ops import price_scan
     from relp_tpu_torch.simplex import kernels
     from relp_tpu_torch.simplex.state import RUNNING, state_from_numpy
+    from relp_tpu_torch.testing import synthetic_problem
 
-    A, b, c1, _c2, cand, basis = _synthetic_problem(
+    A, b, c1, _c2, cand, basis = synthetic_problem(
         m=1024, n=4096, pad=128, seed=7, dtype=np.float32
     )
     M, N = A.shape
@@ -412,7 +501,7 @@ def phase_chunk_loop(torch, np, device, times):
         p: "/".join(f"{q * 1e3:.4f}" for q in np.percentile(v, [25, 75]))
         for p, v in estimates.items()
     }
-    kern_ms, plain_ms = times[(1024, 5120, torch.float32)]
+    kern_ms, plain_ms = times[(1024, 5120, torch.float32)][:2]
     busy_ms, launches, top = _device_busy(torch, lambda: run(60), 60)
     idle = 1.0 - busy_ms / (per_pivot["kernel"] * 1e3) if busy_ms else None
     _line(
@@ -459,7 +548,7 @@ _SHAPES = {}
 
 def _lowered_shape(m, n, seed):
     """(M, N) of a scenario family's lowered tableau (pad_to=128)."""
-    from relp_tpu_torch._host import pad_to_multiple
+    from relp_tpu_torch.linalg.device import pad_to_multiple
     from relp_tpu_torch.testing import scenario_base
 
     if (m, n, seed) not in _SHAPES:
@@ -546,15 +635,14 @@ def _family_phase2_start(torch, name):
 def _toy_start(torch, np, B, m, n):
     """The JAX megakernel tests' toy batch (tests/test_pallas_batch.py
     _toy_batch): B synthetic LPs, seeds 0..B-1, at their artificial start."""
-    from __graft_entry__ import _synthetic_problem
-
     from relp_tpu_torch.parallel.batch import make_batch_state
     from relp_tpu_torch.simplex.state import RUNNING, state_from_numpy
+    from relp_tpu_torch.testing import synthetic_problem
 
     dev = torch.device("cuda")
     states, As, cs, cands = [], [], [], []
     for s in range(B):
-        A, b, c1, _c2, cand, basis = _synthetic_problem(
+        A, b, c1, _c2, cand, basis = synthetic_problem(
             m=m, n=n, pad=32, seed=s, dtype=np.float32
         )
         M, N = A.shape
@@ -656,21 +744,47 @@ def phase_batch_kernel(torch, np):
                 float((k[f].double() - p[f].double()).abs().max())
                 for f in _BATCH_TOL
             ), max(rel.values()))
+            shared = A.stride(0) == 0
+            if shared:  # one tableau for the batch: the bits of B copies
+                out_c = dict(zip(_OUT_FIELDS, kern(A.contiguous(), *args[1:], **kw)))
+                torch.cuda.synchronize()
+                for f in _OUT_FIELDS:
+                    _check(torch.equal(k[f], out_c[f]), f"{label} {variant}: {f} "
+                           "differs between one shared tableau and B copies")
             kern_ms = _events_ms(torch, lambda: kern(*args, **kw))
             plain_ms = _events_ms(
                 torch, lambda: batch_pivot.batched_pivot_chunk_reference(*args, **kw)
             )
-            times[(variant, label, stop_at_zero)] = (kern_ms, plain_ms)
             pivots = k["iteration"] - st.iteration
+            bound_ms, bound_by = _pivot_chunk_bound(A, int(pivots.sum()),
+                                                    int((st.status == 0).sum()))
+            times[(variant, label, stop_at_zero)] = (kern_ms, plain_ms, bound_ms,
+                                                     bound_by)
             _line(
                 "batch/kernel", variant=variant, case=label,
                 shape="x".join(map(str, A.shape)), stop_at_zero=stop_at_zero,
                 pivots=int(pivots.sum()), min_lp_pivots=int(pivots.min()),
                 identical="basis,in_basis,status,iteration", repeat_bitwise=True,
+                shared_tableau_bitwise=shared if shared else "n/a (B tableaus)",
                 rel_err=",".join(f"{f}:{v:.2e}" for f, v in rel.items()),
                 kernel_ms=f"{kern_ms:.4f}", plain_ms=f"{plain_ms:.4f}",
+                bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+                bound_share=f"{bound_ms / kern_ms:.3f}",
             )
     return errors, times
+
+
+def _pivot_chunk_bound(A, pivots: int, running: int):
+    """(bound_ms, bound_by) of one batched-pivot chunk: the tableau (once,
+    or once per LP when the batch stacks copies) and every LP's state in
+    and out, against 6 M N + 6 M^2 operations per pivot taken (the stacked
+    scan, FTRAN, v and the rank-1 update) and 2 M N per running LP (the
+    chunk-entry reduced costs)."""
+    B, M, N = A.shape
+    tableaus = 1 if A.stride(0) == 0 else B
+    state = B * (2 * M * M * 4 + 2 * 3 * M * 4 + N * 4 + N + 2 * N + 2 * N * 4)
+    flops = pivots * (6.0 * M * N + 6.0 * M * M) + running * 2.0 * M * N
+    return _bound(tableaus * M * N * 4 + state, flops)
 
 
 def _highs_check(np, providers, results, picks):
@@ -702,11 +816,13 @@ def phase_batch_family(torch, np, label, fam, digest_want, warm_start_basis=None
 
     providers = scenario_family(**fam)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     results = solve_batch(providers, _batch_config(), certify=True,
                           shared_structure=True, warm_start_basis=warm_start_basis)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     bad = [k for k, r in enumerate(results)
            if r.status is not SolveStatus.FINITE_OPTIMUM or not r.stats.certified]
     _check(not bad, f"{label}: LPs not certified optimal: {bad[:10]}")
@@ -729,8 +845,54 @@ def phase_batch_family(torch, np, label, fam, digest_want, warm_start_basis=None
         device_pivots_per_s=f"{pivots / solve_s:.0f}",
         launches_resident=batch_pivot.LAUNCHES_RESIDENT,
         launches_blocked=batch_pivot.LAUNCHES_BLOCKED,
+        peak_device_MB=f"{peak / 1e6:.1f}",
     )
     return results
+
+
+def phase_batch_memory(torch):
+    """Peak device memory of solve_batch (no certification) on each cold
+    family, with the one shared tableau that lower_batch hands out and with
+    B stacked copies of it (the first port's layout, made here by a
+    lower_batch that returns A.contiguous()): the same results, and the
+    bytes the shared tableau saves."""
+    from relp_tpu_torch.parallel import batch_driver, solve_batch
+    from relp_tpu_torch.testing import FAMILIES, scenario_family
+
+    kept = batch_driver.lower_batch
+
+    def with_copies(*args, **kwargs):
+        problems, A, *rest = kept(*args, **kwargs)
+        return (problems, A.contiguous(), *rest)
+
+    for name, fam in FAMILIES.items():
+        peaks, outcomes = {}, {}
+        for layout, lower in (("shared", kept), ("copies", with_copies)):
+            providers = scenario_family(**fam)
+            batch_driver.lower_batch = lower
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                results = solve_batch(providers, _batch_config(), certify=False,
+                                      shared_structure=True)
+                torch.cuda.synchronize()
+                peaks[layout] = torch.cuda.max_memory_allocated()
+            finally:
+                batch_driver.lower_batch = kept
+            outcomes[layout] = [(r.status.value, tuple(r.basis), r.stats.iterations)
+                                for r in results]
+        _check(outcomes["shared"] == outcomes["copies"],
+               f"{name}: one shared tableau and B copies solve differently")
+        M, N = _family_shapes()[name]
+        _line(
+            "batch/memory", family=name, scenarios=fam["count"],
+            peak_shared_MB=f"{peaks['shared'] / 1e6:.1f}",
+            peak_copies_MB=f"{peaks['copies'] / 1e6:.1f}",
+            saved_MB=f"{(peaks['copies'] - peaks['shared']) / 1e6:.1f}",
+            copies_of_the_tableau_MB=f"{(fam['count'] - 1) * M * N * 4 / 1e6:.1f}",
+            same_results=True,
+        )
 
 
 @contextlib.contextmanager
@@ -865,18 +1027,22 @@ def phase_batch_chunk(torch, np):
     return rates
 
 
-class _RefuseJax:
-    """Import hook that refuses jax: the port must run without it, and the
-    shared host layers must not pull it in even where it is installed."""
+_REFUSED = ("jax", "jaxlib", "relp_tpu")
+
+
+class _Refuse:
+    """Import hook that refuses jax, jaxlib and the JAX package: the port
+    runs without them, and nothing of it may pull them in even where they
+    are installed."""
 
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError(f"chip_smoke runs the port without jax ({name})")
+        if name.split(".")[0] in _REFUSED:
+            raise ImportError(f"chip_smoke runs the port without {name}")
         return None
 
 
 def main() -> int:
-    sys.meta_path.insert(0, _RefuseJax())
+    sys.meta_path.insert(0, _Refuse())
     if not os.path.isdir(os.path.join(HERE, "relp_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
@@ -888,13 +1054,13 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import numpy as np
 
-    import relp_tpu_torch  # noqa: F401  (puts the shared host layers in place)
     from relp_tpu_torch.ops import batch_pivot, price_scan
     from relp_tpu_torch.testing import FAMILIES, FAMILY_OBJECTIVES_SHA256
 
     device = phase_device(torch)
     phase_build()
     main_shape, errors, times = phase_kernel(torch, np, device)
+    probes = phase_probe(torch, device)
     batch_errors, batch_times = phase_batch_kernel(torch, np)
 
     price_scan.LAUNCHES = 0  # counts from here on are the main path's
@@ -915,13 +1081,15 @@ def main() -> int:
         batch_launches[name] = getattr(batch_pivot, counter)
         _check(batch_launches[name] > 0,
                f"the {name} family never launched batch_pivot_kernel<{name}>")
+    phase_batch_memory(torch)
     batch_pivot.LAUNCHES_RESIDENT = batch_pivot.LAUNCHES_BLOCKED = 0
     phase_batch_warm(torch, np)
     phase_batch_chunk(torch, np)
-    _check("jax" not in sys.modules, "jax was imported")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in _REFUSED)
+    _check(not loaded, f"imported: {loaded}")
 
     main_case = (*main_shape, torch.float32)
-    kern_ms, plain_ms = times[main_case]
+    kern_ms, plain_ms, library_ms, bound_ms, bound_by = times[main_case]
     kernels = [{
         "name": "fused_price_scan",
         "route": "cuda",
@@ -931,6 +1099,10 @@ def main() -> int:
         "max_abs_err": errors[main_case],
         "ms": kern_ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+        "library": "torch.matmul(P, A), TF32 off, without the d/gamma epilogue",
         "shape": list(main_shape),
     }]
     for name, fn, replaces in (
@@ -952,8 +1124,21 @@ def main() -> int:
             "max_rel_err": max(r for _a, r in errs),
             "ms": batch_times[case][0],
             "plain_ms": batch_times[case][1],
+            "bound_ms": batch_times[case][2],
+            "bound_by": batch_times[case][3],
+            "library_ms": None,
             "shape": [FAMILIES[name]["count"], *_family_shapes()[name]],
             "per": "one 25-pivot chunk of the whole batch from the phase-2 start",
+        })
+    for kind, fields in probes.items():
+        kernels.append({
+            "name": f"probe_dot_{kind}",
+            "route": "cuda",
+            "source": "relp_tpu_torch/csrc/probe_dot.cu",
+            "replaces": "scripts/probe_dot_precision.py:"
+                        + {"tf32": "54", "tf32x3": "64", "outer": "74"}[kind],
+            **fields,
+            "shape": [256, 256],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

@@ -2,18 +2,21 @@
 CUDA (NVIDIA Hopper).
 
 The host layers (MPS import, GeneralForm, presolve, standardization,
-lowering, exact certification) are shared with ``relp_tpu`` through
-:mod:`relp_tpu_torch._host`; the simplex engine runs on a torch device, with
-the steepest-edge pricing scan as a hand-written CUDA kernel
-(:mod:`relp_tpu_torch.ops.price_scan`).  Scenario batches
+lowering, exact certification) are the package's own copy of the JAX
+package's (``io``, ``data``, ``providers``, ``exact``, ``numbers``,
+``linalg``, ``simplex.lowering``, ``simplex.result``,
+``utils.{checkpoint,debug}``, imports renamed); the simplex engine runs on a
+torch device, with the steepest-edge pricing scan as a hand-written CUDA
+kernel (:mod:`relp_tpu_torch.ops.price_scan`).  Scenario batches
 (:func:`relp_tpu_torch.parallel.solve_batch`) run many LPs in lockstep,
 through the hand-written batched-pivot kernels
 (:mod:`relp_tpu_torch.ops.batch_pivot`) wherever their shape gate takes
-the batch.  This package never imports jax.
+the batch.  This package imports neither jax nor anything of ``relp_tpu``.
 """
 
-from relp_tpu_torch._host import Solution, import_file, load_general_form
 from relp_tpu_torch.config import SolverConfig, default_config
+from relp_tpu_torch.data.solution import Solution
+from relp_tpu_torch.io import import_file, load_general_form
 from relp_tpu_torch.simplex import OptimizationResult, solve_relaxation
 
 __version__ = "0.1.0"

@@ -76,16 +76,16 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
 
-    from relp_tpu_torch._host import (
-        LinearProgramError,
-        SolveStatus,
+    from relp_tpu_torch.data.elements import LinearProgramError
+    from relp_tpu_torch.exact.certificate import (
         export_certificate,
         load_certificate,
-        load_general_form,
-        save_basis,
         save_certificate,
         verify_certificate,
     )
+    from relp_tpu_torch.io import load_general_form
+    from relp_tpu_torch.simplex.result import SolveStatus
+    from relp_tpu_torch.utils.checkpoint import save_basis
 
     if args.command == "verify":
         gf = load_general_form(args.path)

@@ -520,12 +520,16 @@ def _megakernel_variant(shape):
     one CUDA block of the H100 can hold in shared memory (232,448 bytes
     opt-in; ``relp_tpu_torch.ops.batch_pivot.SMEM_LIMIT``):
 
-    * ``"resident"`` when one LP's (M, M) f32 inverse and its vector state
-      fit ((M^2 + 8M + 3N) 4 + 2N bytes and scratch, ``smem_bytes``):
-      M <= 128 at the families' widths
-      (an M=256 inverse alone is 256 KB);
-    * ``"blocked"`` when only the vector state fits: the inverse stays in
-      device memory and is updated in place;
+    * ``"resident"`` when one LP's (M, M) f32 inverse, its vector state and
+      the work scratch fit a 256-thread block ((M^2 + 8M + 3N + 136 +
+      scratch) 4 + 2N bytes, ``smem_bytes``; the scratch is at most about
+      3 N (256 / (N / 4)) words): M <= 128 at the families' widths (an
+      M=256 inverse alone is 256 KB);
+    * ``"blocked"`` when the vector state, the scratch and the 5-tile ring
+      of streamed inverse rows (at most 5 x 16 KB) fit: the
+      inverse stays in device memory, updated in place, and the rows that
+      fit beside the rest (``blocked_rows``: 45 of 512 at 512 x 1408) stay
+      in shared memory for the chunk;
     * ``None`` otherwise.
 
     The JAX package sized these by the TPU's VMEM (6 MB / 12 MB budgets,

@@ -31,17 +31,10 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from relp_tpu_torch._host import (
-    MatrixProvider,
-    OptimizationResult,
-    SolveStats,
-    SolveStatus,
-    SparseVector,
-    certify_and_repair,
-    lower_provider,
-    pad_to_multiple,
-)
 from relp_tpu_torch.config import SolverConfig, default_config, torch_device
+from relp_tpu_torch.exact.certify import certify_and_repair
+from relp_tpu_torch.linalg.device import pad_to_multiple
+from relp_tpu_torch.linalg.sparse import SparseVector
 from relp_tpu_torch.parallel.batch import (
     _v_gamma,
     _v_newton,
@@ -54,7 +47,10 @@ from relp_tpu_torch.parallel.batch import (
 )
 from relp_tpu_torch.simplex.driver import _PRICING_CODES, warm_dual_feasible
 from relp_tpu_torch.simplex.engine import DenseEngine, scan_dtype
+from relp_tpu_torch.providers.base import MatrixProvider
 from relp_tpu_torch.simplex.kernels import PRICE_STEEPEST, noisy_f32_matmul
+from relp_tpu_torch.simplex.lowering import lower_provider
+from relp_tpu_torch.simplex.result import OptimizationResult, SolveStats, SolveStatus
 from relp_tpu_torch.simplex.state import OPTIMAL, RUNNING, SINGULAR
 from relp_tpu_torch.utils.logging import get_logger
 
@@ -123,7 +119,10 @@ def lower_batch(providers, cfg: SolverConfig, device, *, shared_structure: bool)
 
     Returns (problems, A, b, c1, c2, cand, batch), the arrays stacked over
     the batch on ``device``.  With ``shared_structure`` the tableau is
-    lowered once and only b differs per scenario.
+    lowered once and only b differs per scenario: ``A`` is then that one
+    (M, N) tableau expanded to (B, M, N), batch stride 0, not B copies.
+    Nothing writes into it (an in-place write into an expanded tensor
+    raises); cast it with :func:`cast_tableau`.
     """
     dtype = np.float64 if cfg.dtype == "float64" else np.float32
     max_rows = max(p.nr_rows() for p in providers)
@@ -150,12 +149,26 @@ def lower_batch(providers, cfg: SolverConfig, device, *, shared_structure: bool)
         return torch.as_tensor(np.stack([getattr(pr, field) for pr in problems]),
                                device=device)
 
+    if shared_structure:
+        A = torch.as_tensor(base.A, device=device).expand(len(problems), M, N)
+    else:
+        A = stacked("A")
+
     # Initial states are built on the host and moved in one copy per field.
     host_engine = DenseEngine(torch.device("cpu"))
     batch = make_batch_state([host_engine.init_state(pr, cfg) for pr in problems])
     batch = type(batch)(*(t.to(device) for t in batch))
-    return (problems, stacked("A"), stacked("b"), stacked("c_phase1"),
+    return (problems, A, stacked("b"), stacked("c_phase1"),
             stacked("c_phase2"), stacked("candidate_mask"), batch)
+
+
+def cast_tableau(A: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``A`` in ``dtype``, one shared tableau staying one: the (M, N) base
+    is cast and expanded again (a cast of the expanded view would make B
+    copies)."""
+    if A.shape[0] > 1 and A.stride(0) == 0:
+        return A[0].to(dtype).expand(A.shape)
+    return A.to(dtype)
 
 
 def solve_batch(
@@ -207,7 +220,7 @@ def solve_batch(
     )
     M, N = problems[0].M, problems[0].N
     mixed = cfg.scan_dtype not in ("same", cfg.dtype)
-    A_scan = A.to(scan_dtype(cfg)) if mixed else A
+    A_scan = cast_tableau(A, scan_dtype(cfg)) if mixed else A
 
     newton = 3 if cfg.dtype == "float64" else 1
     noisy_backend = noisy_f32_matmul()

@@ -2,8 +2,8 @@
 ``relp_tpu.simplex``): device state, kernels, the dense engine and the
 two-phase driver with exact certification."""
 
-from relp_tpu_torch._host import OptimizationResult, SolveStatus
 from relp_tpu_torch.simplex.driver import solve_general_form, solve_relaxation
+from relp_tpu_torch.simplex.result import OptimizationResult, SolveStatus
 
 __all__ = [
     "OptimizationResult",

@@ -28,25 +28,27 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from relp_tpu_torch._host import (
-    DeviceProblem,
-    LinearProgramError,
-    LPStatus,
-    MatrixProvider,
-    Objective,
-    OptimizationResult,
-    Solution,
-    SolveStats,
-    SolveStatus,
-    SparseVector,
+from relp_tpu_torch.data.elements import LinearProgramError, LPStatus, Objective
+from relp_tpu_torch.data.solution import Solution
+from relp_tpu_torch.exact.certify import (
     certify_and_repair,
     certify_infeasible,
     certify_unbounded,
+)
+from relp_tpu_torch.linalg.device import pad_to_multiple
+from relp_tpu_torch.linalg.sparse import SparseVector
+from relp_tpu_torch.providers.base import MatrixProvider
+from relp_tpu_torch.simplex.lowering import (
+    DeviceProblem,
     lower_provider,
     lower_removing_rows,
-    pad_to_multiple,
-    validate_bfs_state,
 )
+from relp_tpu_torch.simplex.result import (
+    OptimizationResult,
+    SolveStats,
+    SolveStatus,
+)
+from relp_tpu_torch.utils.debug import validate_bfs_state
 from relp_tpu_torch.config import SolverConfig, default_config, torch_device
 from relp_tpu_torch.simplex.engine import make_engine, scan_dtype
 from relp_tpu_torch.simplex.kernels import (

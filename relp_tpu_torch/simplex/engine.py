@@ -13,7 +13,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from relp_tpu_torch._host import DeviceProblem, SolveStats
+from relp_tpu_torch.simplex.lowering import DeviceProblem
+from relp_tpu_torch.simplex.result import SolveStats
 from relp_tpu_torch.config import SolverConfig
 from relp_tpu_torch.simplex import kernels
 from relp_tpu_torch.simplex.state import RUNNING, SimplexState

@@ -7,6 +7,8 @@ draws: the expected objective below depends on it.
 
 ``scenario_family`` perturbs its right-hand side into a family of scenarios
 for ``solve_batch``, with the recipe of ``scripts/batch_scenarios.py``.
+``synthetic_problem`` is the Gaussian LP of the kernel tests, as dense
+arrays.
 """
 
 from __future__ import annotations
@@ -17,14 +19,10 @@ from fractions import Fraction
 
 import numpy as np
 
-from relp_tpu_torch._host import (
-    GeneralForm,
-    Objective,
-    RangedConstraintRelation,
-    SparseColumnMatrix,
-    Variable,
-    VariableType,
-)
+from relp_tpu_torch.data.elements import Objective, RangedConstraintRelation
+from relp_tpu_torch.data.general_form import GeneralForm, Variable, VariableType
+from relp_tpu_torch.linalg.device import pad_to_multiple
+from relp_tpu_torch.linalg.sparse import SparseColumnMatrix
 
 # The real-size case: m=384, n=1536, seed 7.  Its exact optimum (a Fraction
 # of value -15800.2035498...) is pinned by sha256(str(objective)), taken from
@@ -141,3 +139,31 @@ def objectives_digest(objectives) -> str:
     return hashlib.sha256(
         "\n".join(str(v) for v in objectives).encode()
     ).hexdigest()
+
+
+def synthetic_problem(m=32, n=64, pad=32, dtype=np.float64, seed=0):
+    """A feasible random standard-form LP already lowered to dense arrays,
+    (A, b, c1, c2, cand, basis): Gaussian m x n data, one artificial per
+    padded row, phase-1 costs c1, real costs c2 and the artificial basis.
+    The draws of the JAX package's ``__graft_entry__._synthetic_problem``,
+    so both packages' tests start from the same arrays."""
+    rng = np.random.default_rng(seed)
+    M = pad_to_multiple(m, pad)
+    art = n
+    N = pad_to_multiple(n + M, pad)
+    A = np.zeros((M, N), dtype=dtype)
+    dense = rng.standard_normal((m, n)).astype(dtype)
+    A[:m, :n] = dense
+    for i in range(M):
+        A[i, art + i] = 1.0
+    x_feas = np.abs(rng.standard_normal(n)).astype(dtype)
+    b = np.zeros(M, dtype=dtype)
+    b[:m] = np.abs(dense @ x_feas)  # keep rhs nonnegative
+    c1 = np.zeros(N, dtype=dtype)
+    c1[art : art + m] = 1.0
+    c2 = np.zeros(N, dtype=dtype)
+    c2[:n] = rng.standard_normal(n)
+    cand = np.zeros(N, dtype=bool)
+    cand[:n] = True
+    basis = np.arange(art, art + M, dtype=np.int32)
+    return A, b, c1, c2, cand, basis

@@ -13,15 +13,18 @@ Inputs are made with numpy from a seed and go through both packages:
   interpret mode, at the shapes of tests/test_pallas_batch.py and with its
   tolerances (xB 1e-4, pi 1e-3, Binv 1e-3, gamma 1e-2) taken relative to
   1 + max|JAX| (gamma reaches ~1e3 there, and torch sums in another order);
-* ``solve_batch`` end to end: the same statuses, exact objectives, bases and
-  iteration counts.
+* ``solve_batch`` end to end: the same status values, exact objectives,
+  bases and iteration counts, each package building its providers with its
+  own classes from the same source (``twin``).
 
 The data is Gaussian (``__graft_entry__._synthetic_problem``) where pivots
 are compared, so no two candidates tie and both packages walk one path.
 """
 
 import dataclasses
+import importlib
 from fractions import Fraction
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,18 +38,39 @@ from relp_tpu.parallel.batch_driver import solve_batch as jax_solve_batch
 from relp_tpu.simplex import kernels as jk
 from relp_tpu.simplex import state as jstate
 from relp_tpu.simplex.driver import solve_relaxation as jax_solve_relaxation
+import relp_tpu_torch.testing
 from relp_tpu_torch.config import SolverConfig
 from relp_tpu_torch.ops import batch_pivot
 from relp_tpu_torch.parallel import batch as tb
 from relp_tpu_torch.parallel import solve_batch
 from relp_tpu_torch.simplex import SolveStatus, solve_relaxation
 from relp_tpu_torch.simplex.state import SimplexState, state_from_numpy
-from relp_tpu_torch.testing import WARM_FAMILY, scenario_base, scenario_family
-from tests.test_dual import _interval_provider
-from tests.test_dual import _provider as dual_provider
-from tests.test_parallel import _provider as parallel_provider
+from relp_tpu_torch.testing import WARM_FAMILY, scenario_family
+from tests.test_torch_host_copy import twin
 
 F = Fraction
+
+
+def _package(port: bool) -> SimpleNamespace:
+    """One package's builders of the test inputs."""
+    def pick(name):
+        return twin(name) if port else importlib.import_module(name)
+
+    dual, parallel = pick("tests.test_dual"), pick("tests.test_parallel")
+    return SimpleNamespace(
+        dual_provider=dual._provider, interval_provider=dual._interval_provider,
+        parallel_provider=lambda b2: parallel._provider(b2)[0],
+        # GeneralForm and its element classes (test_dual imports them all)
+        GeneralForm=dual.GeneralForm, Objective=dual.Objective,
+        RangedConstraintRelation=dual.RangedConstraintRelation,
+        SparseColumnMatrix=dual.SparseColumnMatrix, Variable=dual.Variable,
+        VariableType=dual.VariableType,
+        testing=(relp_tpu_torch.testing if port
+                 else twin("relp_tpu_torch.testing", "relp_tpu")),
+    )
+
+
+JAX, PORT = _package(False), _package(True)
 INT_FIELDS = ("basis", "in_basis", "status", "iteration", "degen_count",
               "inner", "price_start")
 FLOAT_FIELDS = ("Binv", "xB", "pi", "obj", "gamma", "d")
@@ -85,6 +109,20 @@ def _toy(B, m, n, dtype, pad=8, seed0=0):
         d=(c1 - np.einsum("bm,bmn->bn", cB, A)).astype(dtype),
     )
     return dict(A=A, b=b, c1=c1, c2=c2, cand=cand), fields
+
+
+@pytest.mark.parametrize("m,n,pad,seed,dtype", [
+    (24, 48, 8, 0, np.float64), (48, 192, 32, 2, np.float32),
+    (1024, 4096, 128, 7, np.float32)])
+def test_synthetic_problem_is_the_compile_checks(m, n, pad, seed, dtype):
+    """The port's copy of the Gaussian LP gives the arrays of the JAX
+    package's __graft_entry__._synthetic_problem."""
+    from relp_tpu_torch.testing import synthetic_problem
+
+    want = _synthetic_problem(m=m, n=n, pad=pad, seed=seed, dtype=dtype)
+    got = synthetic_problem(m=m, n=n, pad=pad, seed=seed, dtype=dtype)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
 
 
 def _jax_state(fields):
@@ -190,13 +228,14 @@ def test_batched_dual_run_chunk_matches_jax():
     (f64)."""
     import jax
 
-    from relp_tpu_torch._host import lower_provider
-    from relp_tpu_torch.testing import scenario_base
+    from relp_tpu_torch.simplex.lowering import lower_provider
 
-    gf, counts = scenario_base(16, 40, 7)
-    provider = gf.derive_matrix_data(counts)
-    base = jax_solve_relaxation(provider, JaxConfig(dtype="float64", pad_to=8))
-    problem = lower_provider(provider, dtype=np.float64, pad_to=8)
+    def provider(p):
+        gf, counts = p.testing.scenario_base(16, 40, 7)
+        return gf.derive_matrix_data(counts)
+
+    base = jax_solve_relaxation(provider(JAX), JaxConfig(dtype="float64", pad_to=8))
+    problem = lower_provider(provider(PORT), dtype=np.float64, pad_to=8)
     assert len(base.basis) == problem.m_real
     basis = problem.initial_basis.copy()
     basis[: problem.m_real] = base.basis
@@ -331,7 +370,7 @@ def _cfg(jax, **kw):
 def _same_results(rj, rt):
     assert len(rj) == len(rt)
     for k, (a, b) in enumerate(zip(rj, rt)):
-        assert b.status is a.status, k
+        assert b.status.value == a.status.value, k
         assert b.exact_objective == a.exact_objective, k
         assert b.stats.certified == a.stats.certified, k
         assert b.basis == a.basis, k
@@ -341,36 +380,36 @@ def _same_results(rj, rt):
         assert b.stats.batch_fallback == a.stats.batch_fallback, k
 
 
-def _eq_provider(rhs):
+def _eq_provider(p, rhs):
     """min 2x + 3y st x + y = rhs, x - y >= 2 (needs phase 1)."""
-    from relp_tpu_torch._host import (
-        GeneralForm, Objective, RangedConstraintRelation, SparseColumnMatrix,
-        Variable, VariableType,
-    )
-
-    gf = GeneralForm(
-        objective=Objective.MINIMIZE,
-        constraints=SparseColumnMatrix.from_dense([[F(1), F(1)], [F(1), F(-1)]]),
-        constraint_types=[RangedConstraintRelation.equal(),
-                          RangedConstraintRelation.greater()],
+    R = p.RangedConstraintRelation
+    gf = p.GeneralForm(
+        objective=p.Objective.MINIMIZE,
+        constraints=p.SparseColumnMatrix.from_dense([[F(1), F(1)], [F(1), F(-1)]]),
+        constraint_types=[R.equal(), R.greater()],
         b=[F(rhs), F(2)],
-        variables=[Variable(VariableType.CONTINUOUS, F(2), F(0), None),
-                   Variable(VariableType.CONTINUOUS, F(3), F(0), None)],
+        variables=[p.Variable(p.VariableType.CONTINUOUS, F(2), F(0), None),
+                   p.Variable(p.VariableType.CONTINUOUS, F(3), F(0), None)],
         variable_names=["x", "y"],
     )
     return gf.derive_matrix_data(gf.standardize())
 
 
-def _warm_family_base():
-    gf, counts = scenario_base(WARM_FAMILY["m"], WARM_FAMILY["n"], WARM_FAMILY["seed"])
+def _warm_family_base(p):
+    gf, counts = p.testing.scenario_base(
+        WARM_FAMILY["m"], WARM_FAMILY["n"], WARM_FAMILY["seed"])
     return gf.derive_matrix_data(counts)
 
 
 def _cases():
-    scen = lambda: [parallel_provider(b2)[0] for b2 in (6, 7, 8, 9)]  # noqa: E731
-    mixed = lambda: [_eq_provider(10), parallel_provider(6)[0], _eq_provider(8)]  # noqa: E731
-    duals = lambda: [dual_provider(b) for b in ([4, 1], [4, 3], [4, 6], [5, 7])]  # noqa: E731
-    intervals = lambda: [_interval_provider(lo) for lo in ("1/2", "9/5", 3)]  # noqa: E731
+    """name -> (providers of one package, config overrides, call keywords)."""
+    scen = lambda p: [p.parallel_provider(b2) for b2 in (6, 7, 8, 9)]  # noqa: E731
+    mixed = lambda p: [_eq_provider(p, 10), p.parallel_provider(6),  # noqa: E731
+                       _eq_provider(p, 8)]
+    duals = lambda p: [p.dual_provider(b)  # noqa: E731
+                       for b in ([4, 1], [4, 3], [4, 6], [5, 7])]
+    intervals = lambda p: [p.interval_provider(lo)  # noqa: E731
+                           for lo in ("1/2", "9/5", 3)]
     return {
         "scenarios": (scen, {}, {}),
         "scenarios-pallas_batch": (scen, dict(pad_to=128, pallas_batch=True), {}),
@@ -385,7 +424,7 @@ def _cases():
         # The first six scenarios of chip_smoke's warm family (+-40% rhs
         # wobbles): every scenario takes dual pivots.
         "warm_generated_family": (
-            lambda: scenario_family(**dict(WARM_FAMILY, count=6)),
+            lambda p: p.testing.scenario_family(**dict(WARM_FAMILY, count=6)),
             dict(pad_to=128, chunk_size=150, refactor_period=150),
             dict(shared_structure=True, warm="generated")),
         "device_refactor": (scen, dict(chunk_size=120, refactor_period=10,
@@ -399,13 +438,13 @@ def test_solve_batch_matches_jax(case):
     call_kw = dict(call_kw)
     warm = call_kw.pop("warm", None)
     if warm is not None:
-        base = {"dual": lambda: dual_provider([4, 6]),
-                "interval": lambda: _interval_provider(1),
-                "generated": _warm_family_base}[warm]()
-        call_kw["warm_start_basis"] = jax_solve_relaxation(base, _cfg(True)).basis
-        assert solve_relaxation(base, _cfg(False)).basis == call_kw["warm_start_basis"]
-    rj = jax_solve_batch(make(), _cfg(True, **cfg_kw), certify=True, **call_kw)
-    rt = solve_batch(make(), _cfg(False, **cfg_kw), certify=True, **call_kw)
+        base = {"dual": lambda p: p.dual_provider([4, 6]),
+                "interval": lambda p: p.interval_provider(1),
+                "generated": _warm_family_base}[warm]
+        call_kw["warm_start_basis"] = jax_solve_relaxation(base(JAX), _cfg(True)).basis
+        assert solve_relaxation(base(PORT), _cfg(False)).basis == call_kw["warm_start_basis"]
+    rj = jax_solve_batch(make(JAX), _cfg(True, **cfg_kw), certify=True, **call_kw)
+    rt = solve_batch(make(PORT), _cfg(False, **cfg_kw), certify=True, **call_kw)
     _same_results(rj, rt)
     assert all(r.stats.certified for r in rt)
     if case.startswith("warm_restart"):
@@ -423,7 +462,7 @@ def test_generated_family_matches_jax():
     """Eight rhs-perturbed scenarios of the generated LP (m=16, n=48), f32
     steepest edge, shared structure, every LP certified in both packages."""
     kw = dict(pad_to=128, chunk_size=150, refactor_period=150)
-    rj = jax_solve_batch(scenario_family(16, 48, 7, 8), JaxConfig(**kw),
+    rj = jax_solve_batch(JAX.testing.scenario_family(16, 48, 7, 8), JaxConfig(**kw),
                          certify=True, shared_structure=True)
     rt = solve_batch(scenario_family(16, 48, 7, 8),
                      SolverConfig(platform="cpu", **kw),
@@ -458,7 +497,7 @@ def test_solve_batch_takes_the_kernel_path_by_default(monkeypatch):
 
 def test_mesh_raises():
     with pytest.raises(NotImplementedError, match="item 16"):
-        solve_batch([parallel_provider(6)[0]], _cfg(False), mesh=object())
+        solve_batch([PORT.parallel_provider(6)], _cfg(False), mesh=object())
 
 
 def test_pallas_batch_on_a_shape_no_kernel_takes_runs_the_torch_path(caplog):
@@ -468,8 +507,103 @@ def test_pallas_batch_on_a_shape_no_kernel_takes_runs_the_torch_path(caplog):
 
     before = (batch_pivot.LAUNCHES_RESIDENT, batch_pivot.LAUNCHES_BLOCKED)
     with caplog.at_level(logging.INFO, logger="relp_tpu_torch"):
-        rt = solve_batch([parallel_provider(6)[0]],
+        rt = solve_batch([PORT.parallel_provider(6)],
                          dataclasses.replace(_cfg(False), pallas_batch=True))
     assert rt[0].exact_objective == -F(14, 5)
     assert "batched torch path" in caplog.text
     assert (batch_pivot.LAUNCHES_RESIDENT, batch_pivot.LAUNCHES_BLOCKED) == before
+
+
+def _family_start(m, n, count, shared):
+    """A generated family on the CPU at its phase-1 start, as solve_batch
+    lowers it, with fresh steepest-edge weights."""
+    from relp_tpu_torch.parallel.batch_driver import lower_batch
+
+    cfg = SolverConfig(platform="cpu", pad_to=128, chunk_size=150,
+                       refactor_period=150)
+    _p, A, _b, c1, _c2, cand, st = lower_batch(
+        scenario_family(m, n, 7, count), cfg, torch.device("cpu"),
+        shared_structure=shared)
+    return A, c1, cand, st._replace(gamma=tb._v_gamma(st.Binv, A, st.in_basis))
+
+
+def test_lower_batch_shares_one_tableau():
+    """shared_structure=True hands out one (M, N) tableau expanded over the
+    batch (stride 0, M N elements of storage); without it, B copies."""
+    A, *_ = _family_start(16, 48, 5, shared=True)
+    B, M, N = A.shape
+    assert A.stride() == (0, N, 1)
+    assert A.untyped_storage().nbytes() == M * N * A.element_size()
+    assert batch_pivot.a_batch_stride(A) == 0
+    with pytest.raises(RuntimeError):
+        A.add_(1.0)  # nothing may write into the shared tableau
+    stacked, *_ = _family_start(16, 48, 5, shared=False)
+    assert stacked.is_contiguous() and torch.equal(stacked, A)
+    assert batch_pivot.a_batch_stride(stacked) == M * N
+
+
+def test_a_batch_stride_takes_two_layouts_only():
+    base = torch.zeros(8, 12)
+    assert batch_pivot.a_batch_stride(base.expand(3, 8, 12)) == 0
+    assert batch_pivot.a_batch_stride(torch.zeros(3, 8, 12)) == 96
+    assert batch_pivot.a_batch_stride(base.unsqueeze(0)) == 96  # B = 1
+    for bad in (torch.zeros(3, 12, 8).transpose(1, 2),  # column-major rows
+                torch.zeros(6, 8, 12)[::2],  # every other tableau
+                torch.zeros(3, 8, 16)[:, :, :12],  # padded rows
+                torch.zeros(8, 12)):  # no batch dimension
+        with pytest.raises(ValueError):
+            batch_pivot.a_batch_stride(bad)
+
+
+def test_cast_tableau_keeps_one_tableau():
+    from relp_tpu_torch.parallel.batch_driver import cast_tableau
+
+    A = torch.ones(4, 6, dtype=torch.float64).expand(3, 4, 6)
+    cast = cast_tableau(A, torch.float32)
+    assert cast.dtype == torch.float32 and cast.stride() == (0, 6, 1)
+    assert cast.untyped_storage().nbytes() == 4 * 6 * 4
+    stacked = cast_tableau(torch.ones(3, 4, 6, dtype=torch.float64), torch.float32)
+    assert stacked.is_contiguous() and torch.equal(stacked, cast)
+
+
+@pytest.mark.parametrize("stop_at_zero", [True, False])
+def test_plain_version_on_the_shared_tableau_equals_stacked_copies(stop_at_zero):
+    """The kernels' plain version gives the same bits on the expanded view
+    as on B stacked copies (f32, from the family's phase-1 start)."""
+    A, c1, cand, st = _family_start(16, 48, 4, shared=True)
+    kw = dict(chunk=25, opt_tol=1e-7, pivot_tol=1e-7, degen_tol=1e-7,
+              stop_at_zero=stop_at_zero)
+    state = (st.Binv, st.xB, st.pi, st.basis, st.in_basis, st.gamma,
+             st.status, st.iteration, st.degen_count)
+    shared = batch_pivot.batched_pivot_chunk_reference(A, c1, cand, *state, **kw)
+    copies = batch_pivot.batched_pivot_chunk_reference(
+        A.contiguous(), c1, cand, *state, **kw)
+    for got, want in zip(shared, copies):
+        assert torch.equal(got, want)
+    assert int((shared[7] - st.iteration).min()) > 0
+
+
+def test_solve_batch_on_the_shared_tableau_equals_stacked_copies():
+    """solve_batch with shared_structure (one expanded tableau) and without
+    it (B copies) reach the same results on a generated family."""
+    kw = dict(platform="cpu", pad_to=128, chunk_size=150, refactor_period=150)
+    runs = [solve_batch(scenario_family(16, 48, 7, 4), SolverConfig(**kw),
+                        certify=True, shared_structure=shared)
+            for shared in (True, False)]
+    _same_results(*runs)
+    assert all(r.stats.certified and not r.stats.batch_fallback for r in runs[0])
+
+
+@pytest.mark.parametrize("M,N,resident,blocked,rows", [
+    (128, 384, 80_672, 117_024, 128),  # the resident family
+    (512, 1408, 1_093_408, 231_200, 45),  # the blocked family
+    (224, 544, 220_512, 231_904, 108),
+    (128, 20480, 362_016, 393_760, None),
+])
+def test_shared_memory_formula(M, N, resident, blocked, rows):
+    """Bytes per block of each variant (csrc/batch_pivot.cu smem_bytes) and
+    the inverse rows the blocked kernel keeps in shared memory: at 128 x 384
+    two resident blocks fit one SM's 228 KB."""
+    assert batch_pivot.smem_bytes(M, N, resident=True) == resident
+    assert batch_pivot.smem_bytes(M, N, resident=False) == blocked
+    assert batch_pivot.blocked_rows(M, N) == rows

@@ -11,8 +11,11 @@ summation order only), and the main path on CUDA must reach the exact
 verdicts the port reaches on the CPU.  The batched-pivot kernels are held
 against batched_pivot_chunk_reference at the JAX megakernel tests' toy
 shapes (identical pivots; xB 1e-4, pi 1e-3, Binv 1e-3, gamma 1e-2 relative
-to 1 + max|plain|; two launches give the same bits), and solve_batch on
-CUDA must reach the CPU's verdicts and exact objectives through them.
+to 1 + max|plain|; two launches give the same bits), give the same bits on
+one tableau expanded over the batch as on B copies of it; their shared
+memory is the wrapper's formula; and solve_batch on CUDA must reach the
+CPU's verdicts and exact objectives through them.  The precision probe's
+kernels keep TF32 above 1e-6 relative error and the others below it.
 """
 
 import os
@@ -106,9 +109,9 @@ def test_cli_on_cuda(cuda_device, capsys):
 def _toy_batch(device, B, m, n):
     """tests/test_pallas_batch.py's toy batch: B synthetic LPs (pad 32, f32)
     at their artificial start, as the kernels' twelve arguments."""
-    from __graft_entry__ import _synthetic_problem
+    from relp_tpu_torch.testing import synthetic_problem
 
-    probs = [_synthetic_problem(m=m, n=n, pad=32, seed=s, dtype=np.float32)
+    probs = [synthetic_problem(m=m, n=n, pad=32, seed=s, dtype=np.float32)
              for s in range(B)]
     A, b, c1, _c2, cand, basis = (np.stack(x) for x in zip(*probs))
     _, M, N = A.shape
@@ -195,3 +198,76 @@ def test_solve_batch_on_cuda_matches_cpu(cuda_device, m, n, counter):
             assert getattr(batch_pivot, counter) > launches
     assert verdicts["cuda"] == verdicts["cpu"]
     assert all(v[:2] == (SolveStatus.FINITE_OPTIMUM, True) for v in verdicts["cuda"])
+
+
+def _family_batch(device, m, n, count=4):
+    """A generated family lowered by solve_batch's lower_batch at its
+    phase-1 start (one tableau expanded over the batch), as the kernels'
+    twelve arguments."""
+    from relp_tpu_torch.parallel.batch import _v_gamma
+    from relp_tpu_torch.parallel.batch_driver import lower_batch
+
+    cfg = SolverConfig(platform="cuda", pad_to=128, chunk_size=150,
+                       refactor_period=150)
+    _p, A, _b, c1, _c2, cand, st = lower_batch(
+        scenario_family(m, n, 7, count), cfg, device, shared_structure=True)
+    assert A.stride(0) == 0
+    gamma = _v_gamma(st.Binv, A, st.in_basis)
+    return [A, c1, cand, st.Binv, st.xB, st.pi, st.basis, st.in_basis, gamma,
+            st.status, st.iteration, st.degen_count]
+
+
+_PIVOT_OUTPUTS = (3, 4, 6, 7)  # basis, in_basis, status, iteration
+
+
+@pytest.mark.parametrize("variant,m,n", [("resident", 16, 48), ("blocked", 150, 200),
+                                         ("blocked", 16, 48)])
+def test_batch_pivot_kernels_same_bits_on_one_shared_tableau(cuda_device, variant, m, n):
+    """The kernel on one tableau expanded over the batch (batch stride 0)
+    gives the bits it gives on B stacked copies, and the plain version's
+    pivots."""
+    kern = (batch_pivot.batched_pivot_chunk if variant == "resident"
+            else batch_pivot.batched_pivot_chunk_blocked)
+    args = _family_batch(cuda_device, m, n)
+    kw = dict(chunk=25, opt_tol=1e-7, pivot_tol=1e-7, degen_tol=1e-7,
+              stop_at_zero=True)
+    shared = kern(*args, **kw)
+    copies = kern(args[0].contiguous(), *args[1:], **kw)
+    plain = batch_pivot.batched_pivot_chunk_reference(*args, **kw)
+    torch.cuda.synchronize()
+    for k, k2 in zip(shared, copies):
+        assert torch.equal(k, k2)
+    for i in _PIVOT_OUTPUTS:
+        assert torch.equal(shared[i], plain[i]), i
+    assert int((shared[7] - args[10]).min()) > 0
+
+
+@pytest.mark.parametrize("M,N", [(32, 96), (64, 256), (128, 384), (224, 544),
+                                 (384, 640), (512, 1408), (1024, 4096), (128, 5120)])
+def test_kernel_shared_memory_is_the_wrappers_formula(cuda_device, M, N):
+    """csrc/batch_pivot.cu's smem_bytes equals ops/batch_pivot.py's for the
+    resident layout (256 threads) and the blocked one (1024) with its
+    default rows and with none."""
+    import ctypes
+
+    lib = batch_pivot._lib()
+    lib.relp_batch_pivot_smem_bytes.restype = ctypes.c_longlong
+    cases = [(M, True)] + [(R, False) for R in
+                           {0, M, batch_pivot.blocked_rows(M, N) or 0}]
+    for R, resident in cases:
+        threads = batch_pivot._THREADS[resident]
+        assert (lib.relp_batch_pivot_smem_bytes(M, N, R, int(resident))
+                == batch_pivot._bytes(M, N, R, threads))
+
+
+def test_probe_kernels_precision(cuda_device):
+    """Single-pass TF32 loses digits (relative error above 1e-6, below
+    1e-2 for a correct product); 3xTF32 and the outer product keep f32's
+    (at most 1e-6)."""
+    from relp_tpu_torch.tools import probe_dot_precision as probe
+
+    before = dict(probe.LAUNCHES)
+    err = probe.run(cuda_device)
+    assert 1e-6 < err["tf32"] < 1e-2
+    assert err["tf32x3"] <= 1e-6 and err["outer"] <= 1e-6
+    assert all(probe.LAUNCHES[k] == before[k] + 1 for k in probe.KINDS)

@@ -1,8 +1,9 @@
 """The port's simplex kernels against the JAX package's, in f64 on the CPU.
 
-Both packages lower the same problem through the shared ``lower_provider``
-(f64, pad_to=8), start from the same state (``state_from_numpy`` of the JAX
-state), and run chunk by chunk.  After every chunk ``basis``, ``iteration``,
+Each package builds the problem with its own classes from the same source
+(``twin``) and lowers it with its own ``lower_provider`` (f64, pad_to=8);
+the lowered arrays must be equal.  Both start from the same state
+(``state_from_numpy`` of the JAX state) and run chunk by chunk.  After every chunk ``basis``, ``iteration``,
 ``status`` and the other integer fields must be identical, and the float
 fields (Binv, xB, pi, obj, gamma, d) equal to rtol 1e-12, with an absolute
 floor of 1e-12 * (1 + max|field|) for entries at rounding level near zero.
@@ -22,18 +23,23 @@ import numpy as np
 import pytest
 import torch
 
+import relp_tpu_torch.testing
+import tests.test_fuzz_differential
 from relp_tpu.config import SolverConfig as JaxConfig
+from relp_tpu.io import load_general_form as jax_load_general_form
 from relp_tpu.simplex import kernels as jk
 from relp_tpu.simplex import state as jstate
 from relp_tpu.simplex.driver import _drive_out_artificials
 from relp_tpu.simplex.engine import DenseEngine as JaxEngine
-from relp_tpu_torch._host import SolveStats, load_general_form, lower_provider
+from relp_tpu.simplex.lowering import lower_provider as jax_lower_provider
+from relp_tpu.simplex.result import SolveStats as JaxSolveStats
+from relp_tpu_torch.io import load_general_form
 from relp_tpu_torch.simplex import kernels as tk
 from relp_tpu_torch.simplex import state as tstate
+from relp_tpu_torch.simplex.lowering import lower_provider
 from relp_tpu_torch.simplex.state import state_from_numpy, state_to_numpy
-from relp_tpu_torch.testing import generated_lp
-from tests.test_fuzz_differential import _random_instance
 from tests.test_torch_batch import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_host_copy import twin
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 TOL = 1e-9
@@ -44,36 +50,46 @@ INT_FIELDS = ("basis", "iteration", "status", "in_basis", "degen_count",
               "inner", "price_start")
 
 
-def _matrix_data(name):
+ARRAYS = ("A", "b", "c_phase1", "c_phase2", "candidate_mask")
+
+
+def _lowered(name, port):
+    """The named problem built and lowered by one package."""
     if name == "knap6":
-        gf = load_general_form(os.path.join(DATA, "knap6.mps"))
+        load = load_general_form if port else jax_load_general_form
+        gf = load(os.path.join(DATA, "knap6.mps"))
         gf.presolve()
     elif name.startswith("fuzz"):
-        gf, _ = _random_instance(np.random.default_rng(int(name[4:])))
+        fuzz = (twin("tests.test_fuzz_differential") if port
+                else tests.test_fuzz_differential)
+        gf, _ = fuzz._random_instance(np.random.default_rng(int(name[4:])))
     else:  # "lp{m}x{n}": the generated LP of relp_tpu_torch.testing
+        testing = (relp_tpu_torch.testing if port
+                   else twin("relp_tpu_torch.testing", "relp_tpu"))
         m, n = (int(v) for v in name[2:].split("x"))
-        gf = generated_lp(m, n, 7)
+        gf = testing.generated_lp(m, n, 7)
         gf.presolve()
-    return gf.derive_matrix_data(gf.standardize())
-
-
-def _lowered(name):
-    return lower_provider(_matrix_data(name), dtype=np.float64, pad_to=8)
+    lower = lower_provider if port else jax_lower_provider
+    return lower(gf.derive_matrix_data(gf.standardize()), dtype=np.float64, pad_to=8)
 
 
 class Pair:
-    """The same problem as JAX arrays and as torch tensors."""
+    """The same problem lowered by each package, as JAX arrays and as torch
+    tensors."""
 
-    def __init__(self, problem):
-        self.problem = problem
-        self.j = {k: jnp.asarray(getattr(problem, k))
-                  for k in ("A", "b", "c_phase1", "c_phase2", "candidate_mask")}
-        self.t = {k: torch.from_numpy(np.asarray(getattr(problem, k)))
-                  for k in ("A", "b", "c_phase1", "c_phase2", "candidate_mask")}
+    def __init__(self, name):
+        self.problem = _lowered(name, port=True)
+        self.problem_j = _lowered(name, port=False)
+        for k in (*ARRAYS, "initial_basis"):
+            assert np.array_equal(getattr(self.problem, k),
+                                  getattr(self.problem_j, k)), k
+        self.j = {k: jnp.asarray(getattr(self.problem_j, k)) for k in ARRAYS}
+        self.t = {k: torch.from_numpy(np.asarray(getattr(self.problem, k)))
+                  for k in ARRAYS}
 
 
-def _init(problem):
-    js = JaxEngine().init_state(problem, JaxConfig(dtype="float64", pad_to=8))
+def _init(pair):
+    js = JaxEngine().init_state(pair.problem_j, JaxConfig(dtype="float64", pad_to=8))
     return js, state_from_numpy(js, "cpu")
 
 
@@ -216,8 +232,8 @@ def _refresh_gamma(js, ts, pair, pricing):
 
 
 def _two_phases(name, pricing):
-    pair = Pair(_lowered(name))
-    js, ts = _init(pair.problem)
+    pair = Pair(name)
+    js, ts = _init(pair)
     split = False
     for c, stop_at_zero in (("c_phase1", True), ("c_phase2", False)):
         js, ts = _refresh_gamma(js, ts, pair, pricing)
@@ -231,11 +247,11 @@ def _two_phases(name, pricing):
         # both phase-2 walks start from one clean state: refactorize and
         # drive zero-level artificials out, refactorize for the real costs.
         engine, cfg = JaxEngine(), JaxConfig(dtype="float64", pad_to=8)
-        args = (pair.j["A"], pair.j["b"], pair.j["c_phase1"], cfg, SolveStats())
+        args = (pair.j["A"], pair.j["b"], pair.j["c_phase1"], cfg, JaxSolveStats())
         js, _ = engine.refactor(js, *args)
-        js, _ = _drive_out_artificials(engine, js, pair.problem, *args)
+        js, _ = _drive_out_artificials(engine, js, pair.problem_j, *args)
         js, _ = engine.refactor(js, pair.j["A"], pair.j["b"], pair.j["c_phase2"],
-                                cfg, SolveStats())
+                                cfg, JaxSolveStats())
         js = js._replace(status=jnp.asarray(jstate.RUNNING, jnp.int32))
         ts = state_from_numpy(js, "cpu")
     return pair, js, ts, split
@@ -284,8 +300,8 @@ def test_rademacher_probes_are_bit_identical(M):
 @pytest.fixture(scope="module")
 def phase1_state():
     """lp32x96 after 30 phase-1 pivots: a non-trivial basis, same in both."""
-    pair = Pair(_lowered("lp32x96"))
-    js, _ = _init(pair.problem)
+    pair = Pair("lp32x96")
+    js, _ = _init(pair)
     js = _run_jax(js, pair, "c_phase1", jk.PRICE_STEEPEST, 30, True)
     assert int(js.iteration) == 30
     return pair, js
@@ -373,7 +389,7 @@ def test_forced_pivot_matches(phase1_state):
 def test_dual_chunks_match_after_rhs_change():
     """Optimal basis, then a changed right-hand side: dual pivots restore
     primal feasibility in both packages, chunk by chunk."""
-    pair = Pair(_lowered("lp32x96"))
+    pair = Pair("lp32x96")
     _pair, js, _ts, split = _two_phases("lp32x96", jk.PRICE_STEEPEST)
     assert not split and int(js.status) == jstate.OPTIMAL
     p = pair.problem

@@ -1,8 +1,11 @@
-"""relp_tpu_torch runs where jax cannot be imported (a CUDA machine with
-PyTorch only): a subprocess refuses every jax import, imports the port,
-solves knap6 on the CPU to the exact -30, and finds no jax module loaded;
-another runs a small scenario batch through relp_tpu_torch.parallel."""
+"""relp_tpu_torch runs where neither jax nor the JAX package can be
+imported (a CUDA machine with PyTorch only): a subprocess refuses every
+import of jax, jaxlib and relp_tpu, imports the port, solves knap6 on the
+CPU to the exact -30, and finds none of them loaded; another runs a small
+scenario batch through relp_tpu_torch.parallel; a third imports every
+module of the port."""
 
+import json
 import os
 import pathlib
 import re
@@ -14,17 +17,19 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 SCRIPT = r"""
 import json, sys
 
-class RefuseJax:
+REFUSED = ("jax", "jaxlib", "relp_tpu")
+
+class Refuse:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is refused in this process: " + name)
+        if name.split(".")[0] in REFUSED:
+            raise ImportError("refused in this process: " + name)
         return None
 
-sys.meta_path.insert(0, RefuseJax())
+sys.meta_path.insert(0, Refuse())
 import relp_tpu_torch
 from relp_tpu_torch.config import SolverConfig
 from relp_tpu_torch.simplex import solve_general_form
-from relp_tpu_torch._host import load_general_form
+from relp_tpu_torch.io import load_general_form
 
 result, solution = solve_general_form(
     load_general_form(sys.argv[1]), SolverConfig(platform="cpu")
@@ -33,7 +38,7 @@ print(json.dumps({
     "status": result.status.value,
     "objective": str(solution.objective_value),
     "certified": result.stats.certified,
-    "jax_modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")),
+    "refused_modules": sorted(m for m in sys.modules if m.split(".")[0] in REFUSED),
 }))
 """
 
@@ -48,20 +53,22 @@ def test_port_solves_knap6_with_jax_refused():
     out = proc.stdout.strip().splitlines()[-1]
     assert out == (
         '{"status": "finite_optimum", "objective": "-30", "certified": true, '
-        '"jax_modules": []}'
+        '"refused_modules": []}'
     )
 
 
 BATCH_SCRIPT = r"""
 import json, sys
 
-class RefuseJax:
+REFUSED = ("jax", "jaxlib", "relp_tpu")
+
+class Refuse:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is refused in this process: " + name)
+        if name.split(".")[0] in REFUSED:
+            raise ImportError("refused in this process: " + name)
         return None
 
-sys.meta_path.insert(0, RefuseJax())
+sys.meta_path.insert(0, Refuse())
 from relp_tpu_torch.config import SolverConfig
 from relp_tpu_torch.parallel import solve_batch
 from relp_tpu_torch.testing import scenario_family
@@ -75,7 +82,7 @@ results = solve_batch(
 print(json.dumps({
     "statuses": sorted({r.status.value for r in results}),
     "certified": all(r.stats.certified for r in results),
-    "jax_modules": sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")),
+    "refused_modules": sorted(m for m in sys.modules if m.split(".")[0] in REFUSED),
 }))
 """
 
@@ -88,8 +95,53 @@ def test_port_solves_a_batch_with_jax_refused():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == (
-        '{"statuses": ["finite_optimum"], "certified": true, "jax_modules": []}'
+        '{"statuses": ["finite_optimum"], "certified": true, '
+        '"refused_modules": []}'
     )
+
+
+ALL_MODULES_SCRIPT = r"""
+import importlib, json, pkgutil, sys
+
+REFUSED = ("jax", "jaxlib", "relp_tpu")
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ImportError("refused in this process: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import relp_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(
+    relp_tpu_torch.__path__, "relp_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({
+    "modules": len(names),
+    "refused_modules": sorted(m for m in sys.modules if m.split(".")[0] in REFUSED),
+}))
+"""
+
+
+def test_every_port_module_imports_with_relp_tpu_refused():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", ALL_MODULES_SCRIPT],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["refused_modules"] == [] and out["modules"] >= 50
+
+
+def test_port_sources_never_import_relp_tpu():
+    pattern = re.compile(r"^\s*(import|from)\s+relp_tpu\b(?!_torch)", re.MULTILINE)
+    sources = sorted((ROOT / "relp_tpu_torch").rglob("*.py"))
+    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
+    assert offenders == []
+    assert not pattern.search((ROOT / "chip_smoke.py").read_text())
+    assert not (ROOT / "relp_tpu_torch" / "_host.py").exists()
 
 
 def test_port_sources_never_import_jax():
