@@ -59,11 +59,38 @@ Takes no arguments and needs no network.  Phases, one line each (or more):
                    start, kernel path and plain path, at both family shapes,
                    over a window in which every LP pivots.
 
+The other solve modes follow, each with every kernel's launch count from 0
+just before it (a `launches` line after each):
+
+ 13. mip/small     knap6 through the CLI with --mip, --first-order and
+                   --basis-inverse lu: exact -30, certified; the MIP's best
+                   bound -30 and its incumbent exactly feasible;
+ 14. mip/real      solve_mip (default cuts, strong branching, dive; 64
+                   nodes a wave, 2048 nodes, 90 s) on the Chu-Beasley
+                   knapsack of relp_tpu_torch.testing: a rigorous exact
+                   best bound no higher than HiGHS's optimum, an incumbent
+                   (if one is found) exactly feasible and no better; nodes,
+                   batched solves, fallbacks, the certification share;
+ 15. first_order/real
+                   solve_first_order on main/real's LP: certified, the
+                   pinned digest; PDHG statistics, crossover pivots, wall
+                   split;
+ 16. first_order/pdhg
+                   pdhg_solve on a 2048 x 8192 LP (f32 A of 67 MB):
+                   iterations/s, the device time per iteration of one chunk
+                   against two reads of A, and the KKT residuals of the
+                   returned point in f64 on the host against the card's;
+ 17. lu/real, lu/profile
+                   main/real's LP on the LU engine: certified, the pinned
+                   digest, ms per pivot; one chunk of it replayed under the
+                   profiler for launches and device-busy time per pivot.
+
 Then a JSON line describing each kernel (six: the scan, the two
 batched-pivot kernels and the probe's three) with its time, its plain
 version's, its bound (the larger of its bytes at 3.35 TB/s and its
-operations at the H100's peak for their type) and the library yardstick,
-and as the last line {"ok": true, "device": {...}}.  Any failure raises: the exit code is then
+operations at the H100's peak for their type), the library yardstick and
+its launches on each of the paths 13-17, and as the last line {"ok":
+true, "device": {...}}.  Any failure raises: the exit code is then
 non-zero and no result line is printed.
 """
 
@@ -1027,6 +1054,408 @@ def phase_batch_chunk(torch, np):
     return rates
 
 
+def _launch_counts():
+    """Every kernel's launch counter, by the name of its JSON entry."""
+    from relp_tpu_torch.ops import batch_pivot, price_scan
+    from relp_tpu_torch.tools import probe_dot_precision as probe
+
+    return {
+        "fused_price_scan": price_scan.LAUNCHES,
+        "batched_pivot_chunk": batch_pivot.LAUNCHES_RESIDENT,
+        "batched_pivot_chunk_blocked": batch_pivot.LAUNCHES_BLOCKED,
+        **{f"probe_dot_{kind}": probe.LAUNCHES[kind] for kind in probe.KINDS},
+    }
+
+
+def _zero_launch_counts():
+    from relp_tpu_torch.ops import batch_pivot, price_scan
+    from relp_tpu_torch.tools import probe_dot_precision as probe
+
+    price_scan.LAUNCHES = 0
+    batch_pivot.LAUNCHES_RESIDENT = batch_pivot.LAUNCHES_BLOCKED = 0
+    for kind in probe.KINDS:
+        probe.LAUNCHES[kind] = 0
+
+
+def _rows_hold(gf, values) -> bool:
+    """The point ``values`` (variable name -> Fraction; absent means 0)
+    satisfies every row, bound and integrality of the GeneralForm ``gf``
+    (read before presolve) in exact arithmetic."""
+    from fractions import Fraction
+
+    from relp_tpu_torch.data.elements import RangedKind
+    from relp_tpu_torch.data.general_form import VariableType
+
+    x = [Fraction(values.get(name, 0)) for name, _kind in gf.original_variables]
+    for var, v in zip(gf.variables, x):
+        if var.lower_bound is not None and v < var.lower_bound:
+            return False
+        if var.upper_bound is not None and v > var.upper_bound:
+            return False
+        if var.variable_type is VariableType.INTEGER and v.denominator != 1:
+            return False
+    lhs = [Fraction(0)] * len(gf.b)
+    for j, v in enumerate(x):
+        if v:
+            for i, a in gf.constraints.iter_column(j):
+                lhs[i] += a * v
+    for value, rel, b in zip(lhs, gf.constraint_types, gf.b):
+        if rel.kind is RangedKind.EQUAL and value != b:
+            return False
+        if rel.kind in (RangedKind.LESS, RangedKind.RANGE) and value > b:
+            return False
+        if rel.kind is RangedKind.GREATER and value < b:
+            return False
+        if rel.kind is RangedKind.RANGE and value < b - rel.range:
+            return False
+    return True
+
+
+def phase_mip_small():
+    """knap6 through the CLI as a MIP, by PDHG + crossover and on the LU
+    engine (CUDA by default): exact -30, certified; the MIP's best bound is
+    -30 and its incumbent holds every row exactly."""
+    from relp_tpu_torch.__main__ import main as cli
+    from relp_tpu_torch.io import load_general_form
+
+    path = os.path.join(HERE, "tests", "data", "knap6.mps")
+    for mode in (["--mip"], ["--first-order"], ["--basis-inverse", "lu"]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli(["solve", "--json", "--values", *mode, path])
+        payload = json.loads(out.getvalue())
+        label = " ".join(mode)
+        _check(rc == 0 and payload["status"] == "finite_optimum", f"knap6 {label} {payload}")
+        _check(payload["objective"] == "-30" and payload["certified"] is True,
+               f"knap6 {label} {payload}")
+        fields = dict(mode=label.replace(" ", ":"), objective=payload["objective"],
+                      certified=payload["certified"])
+        if mode == ["--mip"]:
+            _check(payload["best_bound"] == "-30", f"knap6 --mip {payload}")
+            _check(_rows_hold(load_general_form(path), payload["values"]),
+                   "knap6 --mip: the incumbent breaks a row")
+            fields.update(best_bound=payload["best_bound"], gap=payload["gap"],
+                          nodes_solved=payload["nodes_solved"], incumbent_feasible=True)
+        else:
+            fields.update(pivots=payload["iterations"],
+                          phase1_pivots=payload["phase1_iterations"])
+        _line("mip/small", **fields)
+
+
+@contextlib.contextmanager
+def _counting_solves(tally):
+    """Count the LP solves that branch & bound asks for (its lazy imports
+    read these module attributes), the LPs of each batch and its single-LP
+    fallbacks, and time every exact certification of the drivers (also
+    the ones whose result a fallback replaces)."""
+    from relp_tpu_torch.parallel import batch_driver
+    from relp_tpu_torch.simplex import driver
+
+    inside = []
+
+    def batch(providers, *args, **kwargs):
+        inside.append(True)
+        try:
+            results = kept[(batch_driver, "solve_batch")](providers, *args, **kwargs)
+        finally:
+            inside.pop()
+        tally["batched_solves"] += 1
+        tally["batched_lps"] += len(results)
+        tally["fallbacks"] += sum(bool(r.stats.batch_fallback) for r in results)
+        return results
+
+    def single(*args, **kwargs):
+        if not inside:  # a batch's fallbacks are counted with the batch
+            tally["single_solves"] += 1
+        return kept[(driver, "solve_relaxation")](*args, **kwargs)
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                tally["certify_s"] += time.perf_counter() - t0
+        return run
+
+    wrappers = {(batch_driver, "solve_batch"): batch, (driver, "solve_relaxation"): single}
+    for module, name in ((batch_driver, "certify_and_repair"),
+                         (driver, "certify_and_repair"),
+                         (driver, "certify_infeasible"), (driver, "certify_unbounded")):
+        wrappers[(module, name)] = timed(getattr(module, name))
+    kept = {key: getattr(*key) for key in wrappers}
+    tally.update(batched_solves=0, batched_lps=0, fallbacks=0, single_solves=0,
+                 certify_s=0.0)
+    for (module, name), wrapper in wrappers.items():
+        setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        for (module, name), fn in kept.items():
+            setattr(module, name, fn)
+
+
+def _highs_mip(np, W, capacity, profit):
+    """HiGHS (scipy.optimize.milp, 60 s) on the knapsack in the minimize
+    sense: (status, primal objective, dual bound)."""
+    import scipy.optimize as so
+
+    res = so.milp(-profit.astype(float),
+                  constraints=so.LinearConstraint(W.astype(float), -np.inf,
+                                                  capacity.astype(float)),
+                  integrality=np.ones(len(profit)), bounds=so.Bounds(0, 1),
+                  options={"time_limit": 60})
+    fun = None if res.fun is None else float(res.fun)
+    return res.status, fun, getattr(res, "mip_dual_bound", None)
+
+
+def phase_mip_real(torch, np):
+    """solve_mip in its default configuration (Gomory and cover cuts, strong
+    branching, the rounding dive) on the Chu-Beasley knapsack, 64 nodes a
+    wave, at most 2048 nodes and 90 s: a rigorous exact best bound that
+    HiGHS's optimum respects, and an incumbent (where one is found) that
+    holds every row exactly and is no better than HiGHS's optimum."""
+    from fractions import Fraction
+
+    from relp_tpu_torch.config import SolverConfig
+    from relp_tpu_torch.mip import solve_mip
+    from relp_tpu_torch.testing import MKNAP, mknap, mknap_data
+
+    tally = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _counting_solves(tally):
+        mip = solve_mip(mknap(**MKNAP), SolverConfig(), batch_width=64,
+                        node_limit=2048, time_limit_s=90)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    W, capacity, profit = mknap_data(**MKNAP)
+    _check(mip.best_bound is not None and mip.best_bound_exact,
+           f"mip/real: no rigorous best bound ({mip.best_bound}, exact={mip.best_bound_exact})")
+    status, z_highs, bound_highs = _highs_mip(np, W, capacity, profit)
+    if status == 0:  # optimal: the integer optimum is HiGHS's value rounded
+        z = round(z_highs)
+        _check(mip.best_bound <= z, f"mip/real: best bound {mip.best_bound} above "
+               f"HiGHS's optimum {z}")
+    incumbent = "none"
+    if mip.objective is not None:
+        values = dict(mip.solution.solution_values)
+        x = np.array([int(Fraction(values.get(f"x{j}", 0))) for j in range(len(profit))])
+        _check(_rows_hold(mknap(**MKNAP), values), "mip/real: the incumbent breaks a row")
+        _check(Fraction(int(-(profit @ x))) == mip.objective,
+               f"mip/real: objective {mip.objective} is not the incumbent's")
+        if status == 0:
+            _check(z <= mip.objective, f"mip/real: incumbent {mip.objective} beats "
+                   f"HiGHS's optimum {z}")
+        incumbent = str(mip.objective)
+    if status != 0:  # HiGHS stopped early: the two intervals must overlap
+        top = float(mip.objective) if mip.objective is not None else float("inf")
+        _check(float(mip.best_bound) <= z_highs and (bound_highs is None or bound_highs <= top),
+               f"mip/real: [{mip.best_bound}, {top}] misses HiGHS's "
+               f"[{bound_highs}, {z_highs}]")
+    _line(
+        "mip/real", instance="mknapcb-class", m=MKNAP["m"], n=MKNAP["n"],
+        tightness=MKNAP["tightness"], seed=MKNAP["seed"], status=mip.status.value,
+        incumbent=incumbent, incumbent_feasible=incumbent != "none" or "n/a",
+        dive_lps=mip.dive_lps, dive_incumbent=mip.dive_incumbent,
+        nodes_solved=mip.nodes_solved, nodes_pruned=mip.nodes_pruned,
+        node_limit_hit=mip.node_limit_hit, time_limit_hit=mip.time_limit_hit,
+        best_bound=f"{float(mip.best_bound):.6f}", best_bound_exact=mip.best_bound_exact,
+        gap=f"{float(mip.gap):.3e}" if mip.gap is not None else "none",
+        certified=mip.certified, root_objective=f"{float(mip.root_objective):.6f}",
+        highs_status=status, highs_objective=z_highs, highs_bound=bound_highs,
+        batched_solves=tally["batched_solves"], batched_lps=tally["batched_lps"],
+        batch_fallbacks=tally["fallbacks"], single_solves=tally["single_solves"],
+        wall_s=f"{wall:.3f}", certify_s=f"{tally['certify_s']:.3f}",
+        certify_share=f"{tally['certify_s'] / wall:.3f}",
+    )
+
+
+def _reconstructed_objective(gf, md, result):
+    """The full-space exact objective of a reduced certified result."""
+    reduced = md.reconstruct_solution(result.exact_bfs)
+    return gf.compute_full_solution_with_reduced_solution(reduced).objective_value
+
+
+def phase_first_order_real(torch):
+    """solve_first_order (PDHG + crossover) on main/real's LP after the same
+    presolve and standardize as the CLI: certified, main/real's pinned
+    digest; the PDHG statistics, the crossover's pivots, the wall split."""
+    from relp_tpu_torch.config import SolverConfig
+    from relp_tpu_torch.firstorder import solve_first_order
+    from relp_tpu_torch.simplex import SolveStatus
+    from relp_tpu_torch.testing import (
+        REAL_SIZE,
+        REAL_SIZE_OBJECTIVE_SHA256,
+        generated_lp,
+    )
+
+    gf = generated_lp(**REAL_SIZE)
+    gf.presolve()
+    md = gf.derive_matrix_data(gf.standardize())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = solve_first_order(md, SolverConfig())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check(result.status is SolveStatus.FINITE_OPTIMUM and result.stats.certified,
+           f"first_order/real: {result.status} certified={result.stats.certified}")
+    digest = hashlib.sha256(
+        str(_reconstructed_objective(gf, md, result)).encode()).hexdigest()
+    _check(digest == REAL_SIZE_OBJECTIVE_SHA256, f"first_order/real digest {digest}")
+    fo = result.first_order_stats
+    _line(
+        "first_order/real", m=REAL_SIZE["m"], n=REAL_SIZE["n"], status=result.status.value,
+        certified=True, digest_ok=True, pdhg_iterations=fo.iterations,
+        restarts=fo.restarts, converged=fo.converged,
+        primal_residual=f"{fo.primal_residual:.3e}",
+        dual_residual=f"{fo.dual_residual:.3e}", gap=f"{fo.gap:.3e}",
+        crossover_phase1_pivots=result.stats.phase1_iterations,
+        crossover_pivots=result.stats.iterations,
+        wall_s=f"{wall:.3f}", pdhg_s=f"{fo.wall_time_s:.3f}",
+        crossover_solve_s=f"{result.stats.wall_time_s:.3f}",
+        certify_s=f"{result.stats.certify_time_s:.3f}",
+        # to_arrays, the bound-row split, the lift and crossover_basis's
+        # greedy QR on the host
+        host_s=f"{wall - fo.wall_time_s - result.stats.wall_time_s:.3f}",
+    )
+
+
+def _kkt64(np, A, b, c, u, x, y):
+    """pdhg._kkt in f64 numpy (an independent evaluation)."""
+    pr = np.linalg.norm(A @ x - b) / (1.0 + np.linalg.norm(b))
+    lam = c - y @ A
+    finite = np.isfinite(u)
+    du = np.linalg.norm(np.where(finite, 0.0, np.maximum(-lam, 0.0))) / (
+        1.0 + np.linalg.norm(c))
+    pobj = float(c @ x)
+    dobj = float(b @ y + np.sum(np.where(finite, np.where(u > 0, u, 0.0), 0.0)
+                                * np.minimum(lam, 0.0)))
+    return pr, du, abs(pobj - dobj) / (1.0 + abs(pobj) + abs(dobj))
+
+
+def phase_first_order_pdhg(torch, np, device):
+    """pdhg_solve alone on the 2048 x 8192 LP of relp_tpu_torch.testing (f32,
+    its matrix larger than L2): iterations/s and the device time of one
+    200-iteration chunk against its bound (A read twice per iteration at
+    3.35 TB/s); the KKT residuals of the returned point in f64 on the host
+    against the port's f32 evaluation on the card."""
+    from relp_tpu_torch.firstorder import pdhg
+    from relp_tpu_torch.testing import PDHG_SIZE, pdhg_lp
+
+    A, b, c, u = pdhg_lp(**PDHG_SIZE)
+    max_iters = 20_000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, y, st = pdhg.pdhg_solve(A, b, c, u, tol=1e-6, max_iters=max_iters,
+                               device=device)
+    wall = time.perf_counter() - t0
+    _check(np.all(np.isfinite(x)) and np.all(np.isfinite(y)), "first_order/pdhg: non-finite")
+    As, bs, cs, us, d_row, d_col = pdhg.scale_problem(A, b, c, u, np.float32)
+    xs, ys = x / d_col, y / d_row  # back to the iterated (scaled) system
+    host = _kkt64(np, *(v.astype(np.float64) for v in (As, bs, cs, us, xs, ys)))
+    on_card = [torch.as_tensor(v, device=device) for v in (As, bs, cs, us)]
+    xs_d, ys_d = (torch.as_tensor(v.astype(np.float32), device=device) for v in (xs, ys))
+    card = pdhg._kkt(*on_card, xs_d, ys_d)
+    # The card evaluates in f32: allow its rounding of A x and y A (eps32
+    # times the magnitudes summed) besides 1e-3 relative.
+    eps = float(np.finfo(np.float32).eps)
+    floor = (
+        4 * eps * np.linalg.norm(np.abs(As) @ np.abs(xs) + np.abs(bs)) / (1 + np.linalg.norm(bs)),
+        4 * eps * np.linalg.norm(np.abs(ys) @ np.abs(As) + np.abs(cs)) / (1 + np.linalg.norm(cs)),
+        4 * eps * 10.0,
+    )
+    for name, h, d, f in zip(("primal", "dual", "gap"), host, card, floor):
+        _check(abs(h - d) <= 1e-3 * max(h, d) + f,
+               f"first_order/pdhg {name} residual: host {h:.6e} card {d:.6e} floor {f:.1e}")
+    # One chunk on the card between CUDA events, from the returned point.
+    A_d, b_d, c_d, u_d = on_card
+    chunk = 200
+    ms = _events_ms(torch, lambda: pdhg._pdhg_chunk(
+        xs_d, ys_d, xs_d, ys_d, 0.0, 1e-3, 1e-3, A_d, b_d, c_d, u_d, chunk=chunk))
+    bytes_per_iter = 2 * A_d.numel() * 4
+    bound_ms, bound_by = _bound(bytes_per_iter, 4.0 * A_d.numel())
+    _line(
+        "first_order/pdhg", m=A.shape[0], n=A.shape[1], dtype="float32",
+        iterations=st.iterations, restarts=st.restarts, converged=st.converged,
+        wall_s=f"{wall:.3f}", iterations_per_s=f"{st.iterations / wall:.0f}",
+        chunk_ms_per_iteration=f"{ms / chunk:.5f}",
+        bound_ms_per_iteration=f"{bound_ms:.5f}", bound_by=bound_by,
+        bound_share=f"{bound_ms / (ms / chunk):.3f}",
+        bytes_per_iteration=bytes_per_iter,
+        primal_residual=f"{st.primal_residual:.3e}",
+        dual_residual=f"{st.dual_residual:.3e}", gap=f"{st.gap:.3e}",
+        returned_point_host_f64=",".join(f"{v:.4e}" for v in host),
+        returned_point_card_f32=",".join(f"{v:.4e}" for v in card),
+    )
+
+
+def phase_lu_real(torch):
+    """main/real's LP through solve_general_form on the LU engine: certified,
+    the pinned digest; pivots, refactorizations, ms per pivot; then one
+    phase-2 chunk of that solve replayed under the profiler for launches
+    and device-busy time per pivot."""
+    from relp_tpu_torch.config import SolverConfig
+    from relp_tpu_torch.simplex import SolveStatus, engine, solve_general_form
+    from relp_tpu_torch.testing import (
+        REAL_SIZE,
+        REAL_SIZE_OBJECTIVE_SHA256,
+        generated_lp,
+    )
+
+    saved = []
+    kept = engine.LUEngine.run_chunk
+
+    def run_chunk(self, state, *args, **kwargs):
+        if len(saved) < 20:  # keep the 20th chunk's inputs for the replay
+            saved.append((self, state, args, kwargs))
+        return kept(self, state, *args, **kwargs)
+
+    engine.LUEngine.run_chunk = run_chunk
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result, solution = solve_general_form(generated_lp(**REAL_SIZE),
+                                              SolverConfig(basis_inverse="lu"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        engine.LUEngine.run_chunk = kept
+    _check(result.status is SolveStatus.FINITE_OPTIMUM and result.stats.certified,
+           f"lu/real: {result.status} certified={result.stats.certified}")
+    digest = hashlib.sha256(str(solution.objective_value).encode()).hexdigest()
+    _check(digest == REAL_SIZE_OBJECTIVE_SHA256, f"lu/real digest {digest}")
+    pivots = result.stats.iterations + result.stats.phase1_iterations
+    solve_s = result.stats.wall_time_s - result.stats.certify_time_s
+    self, state, args, kwargs = saved[-1]
+    out = kept(self, state, *args, **kwargs)
+    chunk_pivots = int(out.iteration) - int(state.iteration)
+    _check(chunk_pivots > 0, "lu/real: the replayed chunk took no pivot")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    int(kept(self, state, *args, **kwargs).iteration)
+    chunk_ms = (time.perf_counter() - t1) * 1e3
+    busy_ms, launches, top = _device_busy(
+        torch, lambda: int(kept(self, state, *args, **kwargs).iteration), chunk_pivots)
+    _line(
+        "lu/real", m=REAL_SIZE["m"], n=REAL_SIZE["n"], status=result.status.value,
+        certified=True, digest_ok=True, pivots=result.stats.iterations,
+        phase1_pivots=result.stats.phase1_iterations,
+        refactorizations=result.stats.refactorizations, chunks=result.stats.chunks,
+        escalations=",".join(result.stats.escalations) or "none",
+        wall_s=f"{wall:.3f}", solve_s=f"{solve_s:.3f}",
+        certify_s=f"{result.stats.certify_time_s:.3f}",
+        solve_ms_per_pivot=f"{solve_s / pivots * 1e3:.4f}",
+    )
+    _line(
+        "lu/profile", chunk=len(saved), chunk_pivots=chunk_pivots,
+        chunk_ms_per_pivot=f"{chunk_ms / chunk_pivots:.4f}",
+        device_busy_ms_per_pivot=f"{busy_ms:.4f}" if busy_ms else "not measured",
+        kernel_launches_per_pivot=f"{launches / chunk_pivots:.1f}",
+        top_kernels=";".join(f"{name}:{ms:.4f}ms" for name, ms in top),
+    )
+
+
 _REFUSED = ("jax", "jaxlib", "relp_tpu")
 
 
@@ -1085,6 +1514,23 @@ def main() -> int:
     batch_pivot.LAUNCHES_RESIDENT = batch_pivot.LAUNCHES_BLOCKED = 0
     phase_batch_warm(torch, np)
     phase_batch_chunk(torch, np)
+
+    # The other solve modes, each path's counts from 0 just before it.
+    by_path = {}
+    for path, run in (
+        ("mip/small", phase_mip_small),
+        ("mip/real", lambda: phase_mip_real(torch, np)),
+        ("first_order/real", lambda: phase_first_order_real(torch)),
+        ("first_order/pdhg", lambda: phase_first_order_pdhg(torch, np, device)),
+        ("lu/real", lambda: phase_lu_real(torch)),
+    ):
+        _zero_launch_counts()
+        run()
+        by_path[path] = _launch_counts()
+        _line("launches", path=path, **by_path[path])
+    for path in ("mip/small", "mip/real"):
+        _check(by_path[path]["fused_price_scan"] > 0,
+               f"{path} never launched the scan kernel")
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in _REFUSED)
     _check(not loaded, f"imported: {loaded}")
 
@@ -1140,6 +1586,9 @@ def main() -> int:
             **fields,
             "shape": [256, 256],
         })
+    for entry in kernels:
+        entry["launches_by_path"] = {path: counts[entry["name"]]
+                                     for path, counts in by_path.items()}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
         "ok": True,

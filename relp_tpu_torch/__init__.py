@@ -11,7 +11,12 @@ kernel (:mod:`relp_tpu_torch.ops.price_scan`).  Scenario batches
 (:func:`relp_tpu_torch.parallel.solve_batch`) run many LPs in lockstep,
 through the hand-written batched-pivot kernels
 (:mod:`relp_tpu_torch.ops.batch_pivot`) wherever their shape gate takes
-the batch.  This package imports neither jax nor anything of ``relp_tpu``.
+the batch.  Exact branch & bound (:mod:`relp_tpu_torch.mip`, a host copy)
+runs its node waves through ``solve_batch``; restarted PDHG with crossover
+(:mod:`relp_tpu_torch.firstorder`), the LU + eta-ring engine
+(``basis_inverse="lu"``) and the sparse host backend
+(``backend="host_sparse"``) are the other solve modes.  This package
+imports neither jax nor anything of ``relp_tpu``.
 """
 
 from relp_tpu_torch.config import SolverConfig, default_config

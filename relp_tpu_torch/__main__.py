@@ -1,9 +1,9 @@
 """Command-line interface of the port: ``python -m relp_tpu_torch solve FILE``
 and ``python -m relp_tpu_torch verify FILE CERT``.
 
-The same arguments and ``--json`` payload as ``python -m relp_tpu``, plus
-``--platform {cuda,cpu}`` (default cuda).  ``--mip`` and ``--first-order``
-are accepted but not ported yet: they exit non-zero with a message.
+The same arguments, ``--json`` payloads and exit codes as ``python -m
+relp_tpu``, for all three solve modes (the LP simplex, ``--mip`` and
+``--first-order``), plus ``--platform {cuda,cpu}`` (default cuda).
 """
 
 from __future__ import annotations
@@ -41,23 +41,53 @@ def _parser() -> argparse.ArgumentParser:
         "`python -m relp_tpu_torch verify FILE CERT`",
     )
     solve.add_argument("--values", action="store_true", help="print variable values")
-    # Accepted for command-line compatibility with relp_tpu; not ported yet.
-    solve.add_argument("--mip", action="store_true", help="not ported yet")
-    solve.add_argument("--first-order", action="store_true", help="not ported yet")
-    solve.add_argument("--fo-tol", type=float, default=1e-6)
+    solve.add_argument(
+        "--mip",
+        action="store_true",
+        help="honor MPS integer markers: exact branch & bound over batched "
+        "LP relaxations (default: solve the LP relaxation)",
+    )
+    solve.add_argument(
+        "--first-order",
+        action="store_true",
+        help="solve by restarted PDHG and cross over to the exact "
+        "simplex/certification pipeline",
+    )
+    solve.add_argument(
+        "--fo-tol", type=float, default=1e-6,
+        help="first-order KKT tolerance before crossover",
+    )
     solve.add_argument("--node-limit", type=int, default=10_000)
     solve.add_argument("--batch-width", type=int, default=16)
-    solve.add_argument("--gomory-cuts", type=int, default=8)
-    solve.add_argument("--cut-rounds", type=int, default=4)
-    solve.add_argument("--cover-cuts", type=int, default=8)
+    solve.add_argument(
+        "--gomory-cuts", type=int, default=8,
+        help="max exact root GMI cuts per round (0 disables)",
+    )
+    solve.add_argument("--cut-rounds", type=int, default=4, help="max root GMI cut rounds")
+    solve.add_argument(
+        "--cover-cuts", type=int, default=8,
+        help="max exact knapsack cover cuts at the root (0 disables)",
+    )
     solve.add_argument(
         "--branching", default="pseudocost",
         choices=["pseudocost", "most_fractional"],
     )
-    solve.add_argument("--strong-branching", type=int, default=8)
-    solve.add_argument("--dive-rounds", type=int, default=30)
-    solve.add_argument("--gap", type=float, default=0.0)
-    solve.add_argument("--time-limit", type=float, default=None)
+    solve.add_argument(
+        "--strong-branching", type=int, default=8,
+        help="root strong-branching candidates, one batched solve (0 disables)",
+    )
+    solve.add_argument(
+        "--dive-rounds", type=int, default=30,
+        help="root rounding-dive LP budget for the first incumbent (0 disables)",
+    )
+    solve.add_argument(
+        "--gap", type=float, default=0.0,
+        help="stop once this exact relative optimality gap is proven",
+    )
+    solve.add_argument(
+        "--time-limit", type=float, default=None,
+        help="wall-clock budget in seconds for branch & bound",
+    )
 
     verify = sub.add_parser(
         "verify",
@@ -101,15 +131,6 @@ def main(argv=None) -> int:
         print(f"{'VERIFIED' if ok else 'REJECTED'}: {reason}")
         return 0 if ok else 1
 
-    if args.mip or args.first_order:
-        flag = "--mip" if args.mip else "--first-order"
-        print(
-            f"{flag}: not yet ported to relp_tpu_torch "
-            "(see ROADMAP.md); use `python -m relp_tpu` for it",
-            file=sys.stderr,
-        )
-        return 2
-
     from relp_tpu_torch.config import SolverConfig
     from relp_tpu_torch.simplex import solve_general_form
 
@@ -129,7 +150,12 @@ def main(argv=None) -> int:
     cfg = SolverConfig(**overrides)
 
     gf = load_general_form(args.path)
-    result, solution = solve_general_form(gf, cfg)
+    if args.mip:
+        return _solve_mip(args, gf, cfg)
+    if args.first_order:
+        result, solution = _solve_first_order(args, gf, cfg)
+    else:
+        result, solution = solve_general_form(gf, cfg)
 
     if args.save_basis and result.basis and result.is_optimal():
         # Only optimal bases are valid warm starts.
@@ -184,6 +210,94 @@ def main(argv=None) -> int:
                     print(f"  {name} = {value}")
 
     return 0 if result.status is SolveStatus.FINITE_OPTIMUM else 1
+
+
+def _solve_mip(args, gf, cfg) -> int:
+    """``solve --mip``: exact branch & bound; prints the MIP payload."""
+    from relp_tpu_torch.mip import solve_mip
+    from relp_tpu_torch.simplex.result import SolveStatus
+
+    if args.certificate:
+        print(
+            "certificate: --certificate applies to LP solves only "
+            "(a MIP verdict is certified through its exact B&B tree, "
+            "not a single dual witness); no file written",
+            file=sys.stderr,
+        )
+    mip = solve_mip(
+        gf, cfg, batch_width=args.batch_width,
+        node_limit=args.node_limit, gomory_cuts=args.gomory_cuts,
+        cut_rounds=args.cut_rounds, cover_cuts=args.cover_cuts,
+        branching=args.branching,
+        strong_branching=args.strong_branching,
+        dive_rounds=args.dive_rounds,
+        rel_gap=args.gap, time_limit_s=args.time_limit,
+    )
+
+    def text(value):
+        return str(value) if value is not None else None
+
+    payload = {
+        "status": mip.status.value,
+        "objective": text(mip.objective),
+        "objective_float": float(mip.objective) if mip.objective is not None else None,
+        "certified": mip.certified,
+        "nodes_solved": mip.nodes_solved,
+        "nodes_pruned": mip.nodes_pruned,
+        "node_limit_hit": mip.node_limit_hit,
+        "time_limit_hit": mip.time_limit_hit,
+        "best_bound": text(mip.best_bound),
+        "gap": text(mip.gap),
+        "root_objective": text(mip.root_objective),
+    }
+    if args.json:
+        if args.values and mip.solution is not None:
+            payload["values"] = {
+                name: str(value) for name, value in mip.solution.solution_values
+            }
+        print(json.dumps(payload))
+    else:
+        for key, value in payload.items():
+            print(f"{key}: {value}")
+        if args.values and mip.solution is not None:
+            for name, value in mip.solution.solution_values:
+                if value:
+                    print(f"  {name} = {value}")
+    return 0 if mip.status is SolveStatus.FINITE_OPTIMUM else 1
+
+
+def _solve_first_order(args, gf, cfg):
+    """``solve --first-order``: presolve, standardize, PDHG + crossover;
+    returns (result, Solution or None) like ``solve_general_form``."""
+    from relp_tpu_torch.data.elements import LinearProgramError, LPStatus
+    from relp_tpu_torch.firstorder import solve_first_order
+    from relp_tpu_torch.simplex.result import (
+        OptimizationResult,
+        SolveStats,
+        SolveStatus,
+    )
+
+    solution = None
+    try:
+        if cfg.presolve:
+            gf.presolve()
+        counts = gf.standardize()
+        md = gf.derive_matrix_data(counts)
+        result = solve_first_order(md, cfg, tol=args.fo_tol)
+        if result.is_optimal():
+            reduced = result.exact_bfs if result.exact_bfs is not None else result.bfs
+            reduced = md.reconstruct_solution(reduced)
+            solution = gf.compute_full_solution_with_reduced_solution(reduced)
+    except LinearProgramError as exc:
+        status = {
+            LPStatus.FINITE_OPTIMUM: SolveStatus.FINITE_OPTIMUM,
+            LPStatus.INFEASIBLE: SolveStatus.INFEASIBLE,
+            LPStatus.UNBOUNDED: SolveStatus.UNBOUNDED,
+        }[exc.status]
+        result = OptimizationResult(status=status, stats=SolveStats())
+        result.stats.certified = exc.status is LPStatus.FINITE_OPTIMUM
+        solution = exc.payload
+    return result, solution
 
 
 if __name__ == "__main__":

@@ -49,10 +49,11 @@ class SolverConfig:
     # Row/column padding multiple of the lowered arrays; 128 keeps the
     # lowered shapes equal to the JAX package's.
     pad_to: int = 128
-    # "dense" only in the port; "lu" is validated but not yet ported.
+    # "dense" (explicit inverse) | "lu" (LU factors + eta ring).
     basis_inverse: str = "dense"
     gamma_refresh_period: int = 1
-    # "auto" | "device" | "host_sparse" (the last is not yet ported).
+    # "auto" | "device" | "host_sparse" ("auto" picks the sparse host
+    # backend only on the CPU: simplex.host_sparse.should_use_host_sparse).
     backend: str = "auto"
     phase1: str = "two_phase"
 

@@ -13,8 +13,12 @@ Deliberate differences from the JAX driver:
   the escalation ladder is f32 -> f64 (no double-float rung).
 * f32 matmuls are true f32, so an OPTIMAL reached mid-chunk is final: the
   JAX driver's noisy-backend polish branch has no counterpart.
-* ``mesh`` (column sharding) and the ``host_sparse`` backend raise
-  ``NotImplementedError``; both are ROADMAP work.
+* ``mesh`` (column sharding) raises ``NotImplementedError`` (ROADMAP
+  work).  The ``host_sparse`` backend is chosen by ``"auto"`` only on the
+  CPU (``host_sparse.should_use_host_sparse``), never on CUDA.
+* The LU engine's state has no ``degen_count`` and no dual iteration, so
+  the Bland trigger and the dual warm restart apply to the dense engine
+  only, as in the JAX driver.
 """
 
 from __future__ import annotations
@@ -35,7 +39,6 @@ from relp_tpu_torch.exact.certify import (
     certify_infeasible,
     certify_unbounded,
 )
-from relp_tpu_torch.linalg.device import pad_to_multiple
 from relp_tpu_torch.linalg.sparse import SparseVector
 from relp_tpu_torch.providers.base import MatrixProvider
 from relp_tpu_torch.simplex.lowering import (
@@ -51,6 +54,10 @@ from relp_tpu_torch.simplex.result import (
 from relp_tpu_torch.utils.debug import validate_bfs_state
 from relp_tpu_torch.config import SolverConfig, default_config, torch_device
 from relp_tpu_torch.simplex.engine import make_engine, scan_dtype
+from relp_tpu_torch.simplex.host_sparse import (
+    should_use_host_sparse,
+    solve_relaxation_host_sparse,
+)
 from relp_tpu_torch.simplex.kernels import (
     PRICE_BLAND,
     PRICE_DANTZIG,
@@ -243,7 +250,8 @@ def _run_phase(
         if status != RUNNING:
             break
 
-        if int(state.degen_count) >= cfg.bland_threshold:
+        degen = getattr(state, "degen_count", None)
+        if degen is not None and int(degen) >= cfg.bland_threshold:
             bland_mode = True
 
         state, residual = engine.refactor(state, A_full, b, c, cfg, stats)
@@ -279,7 +287,7 @@ def _run_phase(
             if not recovered:
                 state = _with_status(state, SINGULAR)
                 break
-        if cfg.debug_validate:
+        if cfg.debug_validate and hasattr(state, "Binv"):
             _validate(state, A_full, b, c, feas_tol=cfg.feas_tol * 1e4)
         if perturbed:
             state = _jitter(state)  # refactor recomputed xB from the true b
@@ -336,32 +344,15 @@ def _drive_out_artificials(
         )[0]
         if candidates.size:
             q = int(candidates[np.argmax(np.abs(row[candidates]))])
+            # The LU engine's eta ring has a fixed capacity: refactorize
+            # before it would overflow.
+            eta_count = getattr(state, "eta_count", None)
+            if eta_count is not None and int(eta_count) >= cfg.refactor_period - 1:
+                state, _res = engine.refactor(state, A, b, c, cfg, stats)
             state = engine.forced_pivot(state, A, c, q, r)
         else:
             redundant.append(r)
     return state, redundant
-
-
-def should_use_host_sparse(
-    provider: MatrixProvider, cfg: SolverConfig, device: torch.device
-) -> bool:
-    """The JAX package's auto-routing rule (host_sparse.py:685-706): the
-    sparse host backend wins only on the CPU, when the dense lowering would
-    be both huge (> 2.5e7 padded cells) and nearly empty (< 2% dense).  On
-    CUDA the dense device path stays."""
-    if device.type != "cpu":
-        return False
-    m = provider.nr_rows()
-    n = provider.nr_columns()
-    M = pad_to_multiple(max(m, 1), cfg.pad_to)
-    N = pad_to_multiple(n + M, cfg.pad_to)
-    if M * N < 2.5e7:
-        return False
-    try:
-        nnz = sum(len(provider.column(j).entries()) for j in range(n))
-    except (AttributeError, NotImplementedError):  # columns without entries()
-        return False
-    return nnz / (m * n) < 0.02
 
 
 def _f64_is_emulated() -> bool:
@@ -394,10 +385,14 @@ def solve_relaxation(
     if cfg0.backend == "host_sparse" or (
         cfg0.backend == "auto" and should_use_host_sparse(provider, cfg0, device)
     ):
-        raise NotImplementedError(
-            "the host_sparse backend is not ported to relp_tpu_torch yet: "
-            "ROADMAP.md Queue 1, 'simplex/host_sparse.py'"
+        # Host scipy code (f64 + exact certification), whichever device the
+        # configuration names; "auto" picks it only on the CPU.
+        result = solve_relaxation_host_sparse(
+            provider, cfg0, warm_start_basis=warm_start_basis
         )
+        if not hasattr(result, "provider"):
+            result.provider = provider  # type: ignore[attr-defined]
+        return result
 
     result = _solve_relaxation_once(provider, cfg0, warm_start_basis)
     # __post_init__ clamps tolerances in place for f32; escalation restores
@@ -559,7 +554,7 @@ def _solve_relaxation_once(
         basis_ok = np.isfinite(residual) and residual < 1e-4
         if basis_ok and float(xB.min()) > -1e-7:
             warm_started = True
-        elif basis_ok and cfg.dual_restart:
+        elif basis_ok and cfg.dual_restart and hasattr(engine, "dual_run_chunk"):
             # Primal infeasible warm basis (the rhs changed since it was
             # optimal): if still dual feasible, dual pivots restore primal
             # feasibility with no phase 1.

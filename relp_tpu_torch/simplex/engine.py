@@ -1,9 +1,12 @@
-"""Basis-inverse engine: the port of ``relp_tpu.simplex.engine``.
+"""Basis-inverse engines: the port of ``relp_tpu.simplex.engine``.
 
-Only :class:`DenseEngine` (explicit dense inverse with rank-1 product-form
-updates, the fast path) is ported.  ``LUEngine`` and the double-float
-``DoubleFloatEngine`` are ROADMAP work; ``make_engine`` raises for them
-rather than quietly using the dense engine.
+* :class:`DenseEngine`: explicit dense inverse with rank-1 product-form
+  updates (the fast path).
+* :class:`LUEngine`: f32 LU factors + eta ring (``simplex/lu.py``), the
+  robustness and cross-check backend, ``basis_inverse="lu"``.
+
+The double-float ``DoubleFloatEngine`` is ROADMAP work; ``make_engine``
+raises for it rather than quietly using the dense engine.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from relp_tpu_torch.simplex.lowering import DeviceProblem
 from relp_tpu_torch.simplex.result import SolveStats
 from relp_tpu_torch.config import SolverConfig
 from relp_tpu_torch.simplex import kernels
+from relp_tpu_torch.simplex import lu as lu_mod
 from relp_tpu_torch.simplex.state import RUNNING, SimplexState
 from relp_tpu_torch.utils.logging import get_logger
 
@@ -220,15 +224,126 @@ class DenseEngine:
         return kernels.forced_pivot(state, A, c, q, r)
 
 
-def make_engine(cfg: SolverConfig, device: torch.device) -> DenseEngine:
+class LUEngine:
+    name = "lu"
+
+    def __init__(self, device: torch.device):
+        self.device = device
+
+    def init_state(self, problem: DeviceProblem, cfg: SolverConfig) -> lu_mod.LUState:
+        dtype = working_dtype(cfg)
+        dev = self.device
+        N = problem.N
+        basis = problem.initial_basis
+        in_basis = np.zeros(N, dtype=bool)
+        in_basis[basis] = True
+        basis_t = torch.as_tensor(np.asarray(basis, dtype=np.int32), device=dev)
+        lu, piv, B0, eta_vals, eta_rows, xB, pi, obj, _residual = lu_mod.lu_refactorize(
+            torch.as_tensor(problem.A, device=dev),
+            torch.as_tensor(problem.b, device=dev),
+            torch.as_tensor(problem.c_phase1, device=dev),
+            basis_t,
+            eta_capacity=cfg.refactor_period,
+        )
+        zero = _scalar(0, torch.int32, dev)
+        return lu_mod.LUState(
+            lu=lu, piv=piv, B0=B0, eta_vals=eta_vals, eta_rows=eta_rows,
+            eta_count=zero, basis=basis_t, xB=xB, pi=pi, obj=obj,
+            in_basis=torch.as_tensor(in_basis, device=dev),
+            gamma=torch.ones(N, dtype=dtype, device=dev),
+            iteration=zero, status=_scalar(RUNNING, torch.int32, dev),
+            inner=zero, price_start=zero,
+        )
+
+    def refactor(self, state, A, b, c, cfg: SolverConfig, stats: SolveStats):
+        lu, piv, B0, eta_vals, eta_rows, xB, pi, obj, residual = lu_mod.lu_refactorize(
+            A, b, c, state.basis, eta_capacity=cfg.refactor_period
+        )
+        stats.refactorizations += 1
+        state = state._replace(
+            lu=lu, piv=piv, B0=B0, eta_vals=eta_vals, eta_rows=eta_rows,
+            eta_count=torch.zeros_like(state.eta_count),
+            xB=DenseEngine._clean_xB(xB, cfg), pi=pi, obj=obj,
+        )
+        return state, float(residual)
+
+    def run_chunk(
+        self, state, A_scan, A_full, c, candidate_mask, mode, cfg,
+        stop_at_zero=False,
+    ):
+        # d is recomputed per pivot from pi (no carried d), so the LU path
+        # prices with plain matvecs, not through the fused scan kernel.
+        return lu_mod.lu_run_chunk(
+            state, A_scan, A_full, c, candidate_mask, pricing=mode,
+            chunk=cfg.chunk_size, opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol,
+            degen_tol=cfg.feas_tol, stop_at_zero=stop_at_zero,
+        )
+
+    def recompute_gamma(self, state, A_scan):
+        # gamma_j = 1 + ||B^-1 a_j||^2 from the B0 factors alone, which is
+        # right only with an empty ring: a live eta would give weights of a
+        # stale basis.
+        assert int(state.eta_count) == 0, (
+            "LUEngine.recompute_gamma requires a fresh factorization "
+            "(empty eta ring); refactor first"
+        )
+        W = lu_mod._solve32(state.lu, state.piv, A_scan, trans=0)
+        gamma = 1.0 + (W * W).sum(dim=0).to(state.gamma.dtype)
+        return state._replace(gamma=torch.where(state.in_basis, 1.0, gamma))
+
+    def tableau_row(self, state, A, r: int) -> np.ndarray:
+        e_r = torch.zeros(A.shape[0], dtype=A.dtype, device=A.device)
+        e_r[r] = 1.0
+        rho = lu_mod.lu_btran(state, e_r, int(state.eta_count))
+        return torch.matmul(rho, A).cpu().numpy()
+
+    def forced_pivot(self, state, A, c, q: int, r: int):
+        return _lu_forced_pivot(state, A, c, q, r)
+
+
+def _lu_forced_pivot(state, A, c, q: int, r: int):
+    """Unconditional pivot for the LU engine (zero-level artificial
+    drive-out): append the eta and update the bookkeeping.  q and r are
+    host ints; the driver refactorizes before the ring would overflow."""
+    k = int(state.eta_count)
+    a_q = A[:, q]
+    w = lu_mod.lu_ftran(state, a_q, k)
+    d_q = c[q] - torch.matmul(state.pi, a_q)
+    t = state.xB[r] / w[r]
+    xB_new = state.xB - t * w
+    xB_new[r] = t  # xB_new is fresh
+    leaving = state.basis[r].to(torch.int64).reshape(1)
+    basis_new = state.basis.clone()
+    basis_new[r] = q
+    in_basis_new = state.in_basis.clone().index_fill_(0, leaving, False)
+    in_basis_new[q] = True
+    eta_vals = state.eta_vals.clone()
+    eta_vals[k] = w
+    eta_rows = state.eta_rows.clone()
+    eta_rows[k] = r
+    state = state._replace(
+        eta_vals=eta_vals, eta_rows=eta_rows, eta_count=state.eta_count + 1
+    )
+    e_r = torch.zeros(A.shape[0], dtype=A.dtype, device=A.device)
+    e_r[r] = 1.0
+    rho_new = lu_mod.lu_btran(state, e_r, k + 1)
+    cB = c.index_select(0, basis_new.to(torch.int64))
+    return state._replace(
+        basis=basis_new,
+        xB=xB_new,
+        pi=state.pi + d_q * rho_new,
+        obj=torch.matmul(cB, xB_new),
+        in_basis=in_basis_new,
+        iteration=state.iteration + 1,
+    )
+
+
+def make_engine(cfg: SolverConfig, device: torch.device):
     if cfg.carry == "df32":
         raise NotImplementedError(
             "carry='df32' (DoubleFloatEngine) is not ported to relp_tpu_torch "
             "yet: ROADMAP.md Queue 1, 'ops/df32.py + simplex/df_kernels.py'"
         )
     if cfg.basis_inverse == "lu":
-        raise NotImplementedError(
-            "basis_inverse='lu' (LUEngine) is not ported to relp_tpu_torch "
-            "yet: ROADMAP.md Queue 1, 'simplex/lu.py + LUEngine'"
-        )
+        return LUEngine(device)
     return DenseEngine(device)

@@ -59,6 +59,60 @@ WARM_FAMILY_OBJECTIVES_SHA256 = (
 )
 
 
+# The MIP of chip_smoke's mip/real phase: a multidimensional 0/1 knapsack by
+# Chu & Beasley's recipe (OR-Library mknapcb, J. Heuristics 4 (1998) 63-86)
+# at the size of mknapcb1: 5 constraints, 100 binaries, tightness 0.25.
+MKNAP = dict(m=5, n=100, tightness=0.25, seed=7)
+
+
+def mknap_data(m: int, n: int, tightness: float, seed: int):
+    """(W, capacity, profit): weights w_ij uniform on 1..1000, capacity_i =
+    floor(tightness * sum_j w_ij), profit_j = sum_i w_ij // m plus a uniform
+    draw on 0..500 (profits correlated with the weights)."""
+    rng = np.random.default_rng(seed)
+    W = rng.integers(1, 1001, size=(m, n))
+    capacity = np.floor(tightness * W.sum(axis=1)).astype(np.int64)
+    profit = W.sum(axis=0) // m + rng.integers(0, 501, size=n)
+    return W, capacity, profit
+
+
+def mknap(m: int, n: int, tightness: float, seed: int) -> GeneralForm:
+    """The knapsack as a GeneralForm in the minimize sense (as
+    tests/data/knap6.mps): minimise -profit.x subject to W x <= capacity and
+    x binary."""
+    W, capacity, profit = mknap_data(m, n, tightness, seed)
+    F = Fraction
+    return GeneralForm(
+        objective=Objective.MINIMIZE,
+        constraints=SparseColumnMatrix.from_dense(
+            [[F(int(v)) for v in row] for row in W]
+        ),
+        constraint_types=[RangedConstraintRelation.less() for _ in range(m)],
+        b=[F(int(v)) for v in capacity],
+        variables=[
+            Variable(VariableType.INTEGER, F(-int(p)), F(0), F(1)) for p in profit
+        ],
+        variable_names=[f"x{j}" for j in range(n)],
+    )
+
+
+# The LP of chip_smoke's first_order/pdhg phase: 2048 x 8192 in equality
+# form, its f32 matrix (67 MB) larger than the H100's 50 MB L2.
+PDHG_SIZE = dict(m=2048, n=8192, seed=7)
+
+
+def pdhg_lp(m: int, n: int, seed: int):
+    """(A, b, c, u) of a feasible, bounded LP min c.x s.t. A x = b, 0 <= x <= u:
+    30% nonzeros, integers in -9..9, b = A x0 for x0 uniform on [0, 10]^n,
+    u = 10 and integer costs in -5..5."""
+    rng = np.random.default_rng(seed)
+    A = rng.integers(1, 10, size=(m, n)) * rng.choice([-1, 1], size=(m, n))
+    A = np.where(rng.random((m, n)) < 0.3, A, 0).astype(np.float64)
+    b = A @ rng.uniform(0.0, 10.0, size=n)
+    c = rng.integers(-5, 6, size=n).astype(np.float64)
+    return A, b, c, np.full(n, 10.0)
+
+
 def generated_lp_data(m: int, n: int, seed: int):
     """The raw data (A, b, c, relation kinds) of the generated LP.
 

@@ -3,6 +3,8 @@
 import json
 import os
 
+import pytest
+
 from relp_tpu.__main__ import main as jax_main
 from relp_tpu_torch.__main__ import main
 from tests.test_torch_batch import one_torch_thread  # noqa: F401  (autouse)
@@ -43,9 +45,29 @@ def test_cli_certificate_round_trip(tmp_path, capsys):
     assert capsys.readouterr().out.startswith("VERIFIED")
 
 
-def test_cli_unported_modes_exit_nonzero(capsys):
-    for flag in ("--mip", "--first-order"):
-        rc = main(["solve", flag, "--platform", "cpu", KNAP6])
-        err = capsys.readouterr().err
-        assert rc != 0
-        assert f"{flag}: not yet ported" in err
+# The timing field of the LP payloads; the MIP payload has none.
+TIMING = ("wall_time_s",)
+
+
+@pytest.mark.parametrize("mode", [["--mip", "--values"], ["--first-order", "--values"],
+                                  ["--basis-inverse", "lu", "--values"],
+                                  ["--mip", "--gap", "0.5", "--branching",
+                                   "most_fractional", "--cut-rounds", "1"]])
+def test_cli_solve_modes_match_jax(mode, capsys):
+    """--mip, --first-order and --basis-inverse lu: the JAX CLI's --json
+    payload and exit code, timing aside."""
+    rc_j, jax_out = _run(jax_main, ["solve", "--json", *mode, KNAP6], capsys)
+    rc, out = _run(main, ["solve", "--json", "--platform", "cpu", *mode, KNAP6], capsys)
+    assert rc == rc_j == 0
+    drop = lambda d: {k: v for k, v in d.items() if k not in TIMING}  # noqa: E731
+    assert drop(out) == drop(jax_out)
+    assert out["objective"] == "-30" and out["certified"] is True
+
+
+def test_cli_mip_certificate_notice(tmp_path, capsys):
+    """--certificate with --mip writes nothing and says why, as the JAX CLI."""
+    cert = str(tmp_path / "knap6.cert.json")
+    rc = main(["solve", "--mip", "--platform", "cpu", "--certificate", cert, KNAP6])
+    err = capsys.readouterr().err
+    assert rc == 0 and not os.path.exists(cert)
+    assert "applies to LP solves only" in err

@@ -16,6 +16,9 @@ one tableau expanded over the batch as on B copies of it; their shared
 memory is the wrapper's formula; and solve_batch on CUDA must reach the
 CPU's verdicts and exact objectives through them.  The precision probe's
 kernels keep TF32 above 1e-6 relative error and the others below it.
+The three other solve modes (``--mip``, ``--first-order``, ``--basis-inverse
+lu``) give the CPU's payload on knap6, and PDHG on CUDA walks the CPU's
+iterations.
 """
 
 import os
@@ -104,6 +107,45 @@ def test_cli_on_cuda(cuda_device, capsys):
     out = json.loads(capsys.readouterr().out)
     assert (out["status"], out["objective"], out["certified"]) == (
         "finite_optimum", "-30", True)
+
+
+@pytest.mark.parametrize("mode", [["--mip"], ["--first-order"], ["--basis-inverse", "lu"]])
+def test_cli_solve_modes_on_cuda_match_cpu(cuda_device, capsys, mode):
+    """knap6 as a MIP, by PDHG + crossover and on the LU engine: exact -30,
+    certified, and the CPU's payload (timing aside); the MIP path launches
+    the scan kernel."""
+    import json
+
+    from relp_tpu_torch.__main__ import main
+
+    payloads = {}
+    for platform in ("cpu", "cuda"):
+        launches = price_scan.LAUNCHES
+        assert main(["solve", "--json", "--platform", platform, *mode, KNAP6]) == 0
+        payloads[platform] = json.loads(capsys.readouterr().out)
+        payloads[platform].pop("wall_time_s", None)
+        if platform == "cuda" and mode[0] == "--mip":
+            assert price_scan.LAUNCHES > launches
+    assert payloads["cuda"] == payloads["cpu"]
+    assert (payloads["cuda"]["objective"], payloads["cuda"]["certified"]) == ("-30", True)
+
+
+def test_pdhg_on_cuda_matches_cpu(cuda_device):
+    """pdhg_solve in f64 on a 13x37 LP: CUDA's iterations and restarts are
+    the CPU's, the iterates within 1e-9 relative."""
+    from relp_tpu_torch.firstorder.pdhg import pdhg_solve
+
+    rng = np.random.default_rng(7)
+    A = np.abs(rng.standard_normal((13, 37))) + 0.1
+    b = A @ np.abs(rng.standard_normal(37))
+    c = rng.standard_normal(37)
+    runs = {dev: pdhg_solve(A, b, c, tol=1e-9, dtype=np.float64, device=dev)
+            for dev in ("cpu", "cuda")}
+    (x0, y0, s0), (x1, y1, s1) = runs["cpu"], runs["cuda"]
+    assert s0.converged and s1.converged
+    assert (s1.iterations, s1.restarts) == (s0.iterations, s0.restarts)
+    for mine, want in ((x1, x0), (y1, y0)):
+        assert np.abs(mine - want).max() <= 1e-9 * (1 + np.abs(want).max())
 
 
 def _toy_batch(device, B, m, n):

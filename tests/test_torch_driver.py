@@ -175,9 +175,7 @@ def test_cuda_is_never_a_silent_fallback():
 
 @pytest.mark.parametrize(
     "overrides, match",
-    [(dict(basis_inverse="lu"), "LUEngine"),
-     (dict(carry="df32"), "DoubleFloatEngine"),
-     (dict(backend="host_sparse"), "host_sparse")],
+    [(dict(carry="df32"), "DoubleFloatEngine")],
 )
 def test_unported_options_raise(overrides, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -13,6 +13,7 @@ package's): the helper's source with the package name rewritten, run as a
 module of its own.  No object of one package is ever handed to the other.
 """
 
+import ast
 import importlib.util
 import pathlib
 import re
@@ -42,16 +43,37 @@ COPIED = (
     "numbers/__init__.py", "numbers/factorize.py", "numbers/rational.py",
     "linalg/__init__.py", "linalg/sparse.py", "linalg/permutation.py",
     "linalg/device.py",
-    "simplex/lowering.py", "simplex/result.py",
+    "simplex/lowering.py", "simplex/result.py", "simplex/host_sparse.py",
     "utils/checkpoint.py", "utils/debug.py",
+    "mip/__init__.py", "mip/cuts.py", "mip/branch_bound.py",
 )
 
 # (path, line of the copy) pairs allowed to differ from the renamed
-# original: a docstring that named a checkout's absolute path.
+# original: docstrings that named a checkout's absolute path.
 ALLOWED = frozenset({
     ("exact/certificate.py",
      "(the original solver's src/algorithm/two_phase/tableau/mod.rs:319-357), turned"),
+    ("mip/__init__.py",
+     "bound (and Gomory cuts) as unimplemented (its README.md:60-70);"),
+    ("mip/cuts.py",
+     "arithmetic — the original solver's README.md:60-70)."),
+    ("mip/branch_bound.py",
+     "the original solver's tests/miplib/mod.rs:48-72), and TPU-native by construction:"),
 })
+
+# path -> the one top-level function of the copy that is the port's own and
+# is left out of the comparison on both sides: the JAX package asks
+# jax.default_backend() where the port asks the solve's torch device.
+OWN_FUNCTION = {"simplex/host_sparse.py": "should_use_host_sparse"}
+
+
+def _without_function(text: str, name: str) -> list:
+    """The lines of ``text`` without the top-level function ``name``."""
+    lines = text.splitlines()
+    node = next(n for n in ast.parse(text).body
+                if isinstance(n, ast.FunctionDef) and n.name == name)
+    start = min([node.lineno] + [d.lineno for d in node.decorator_list]) - 1
+    return lines[:start] + lines[node.end_lineno:]
 
 
 def to_port(text: str) -> str:
@@ -61,8 +83,13 @@ def to_port(text: str) -> str:
 
 @pytest.mark.parametrize("path", COPIED)
 def test_host_module_is_the_renamed_original(path):
-    original = to_port((ROOT / "relp_tpu" / path).read_text()).splitlines()
-    copy = (ROOT / "relp_tpu_torch" / path).read_text().splitlines()
+    original = to_port((ROOT / "relp_tpu" / path).read_text())
+    copy = (ROOT / "relp_tpu_torch" / path).read_text()
+    if path in OWN_FUNCTION:
+        original = _without_function(original, OWN_FUNCTION[path])
+        copy = _without_function(copy, OWN_FUNCTION[path])
+    else:
+        original, copy = original.splitlines(), copy.splitlines()
     assert len(copy) == len(original)
     differ = [(i + 1, line) for i, (want, line) in enumerate(zip(original, copy))
               if line != want and (path, line) not in ALLOWED]
@@ -72,7 +99,7 @@ def test_host_module_is_the_renamed_original(path):
 def test_every_host_module_of_the_port_is_listed():
     """A host module added to the port without its test would not show."""
     port = ROOT / "relp_tpu_torch"
-    host_dirs = ("io", "data", "providers", "exact", "numbers", "linalg")
+    host_dirs = ("io", "data", "providers", "exact", "numbers", "linalg", "mip")
     found = {str(p.relative_to(port)) for d in host_dirs
              for p in (port / d).rglob("*.py")}
     assert found == {p for p in COPIED if p.split("/")[0] in host_dirs}

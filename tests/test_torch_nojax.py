@@ -135,6 +135,48 @@ def test_every_port_module_imports_with_relp_tpu_refused():
     assert out["refused_modules"] == [] and out["modules"] >= 50
 
 
+SLICE_SCRIPT = r"""
+import importlib, json, sys
+
+REFUSED = ("jax", "jaxlib", "relp_tpu")
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ImportError("refused in this process: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+for name in ("relp_tpu_torch.mip", "relp_tpu_torch.firstorder",
+             "relp_tpu_torch.simplex.lu", "relp_tpu_torch.simplex.host_sparse"):
+    importlib.import_module(name)
+from relp_tpu_torch.config import SolverConfig
+from relp_tpu_torch.io import load_general_form
+from relp_tpu_torch.mip import solve_mip
+
+mip = solve_mip(load_general_form(sys.argv[1]), SolverConfig(platform="cpu"))
+print(json.dumps({
+    "objective": str(mip.objective),
+    "certified": mip.certified,
+    "refused_modules": sorted(m for m in sys.modules if m.split(".")[0] in REFUSED),
+}))
+"""
+
+
+def test_mip_first_order_lu_and_host_sparse_import_with_jax_refused():
+    """The modules of the MIP, first-order, LU and host-sparse paths import
+    with jax, jaxlib and relp_tpu refused, and knap6 solves as a MIP."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", SLICE_SCRIPT, str(ROOT / "tests" / "data" / "knap6.mps")],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == (
+        '{"objective": "-30", "certified": true, "refused_modules": []}'
+    )
+
+
 def test_port_sources_never_import_relp_tpu():
     pattern = re.compile(r"^\s*(import|from)\s+relp_tpu\b(?!_torch)", re.MULTILINE)
     sources = sorted((ROOT / "relp_tpu_torch").rglob("*.py"))
