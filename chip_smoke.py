@@ -64,23 +64,34 @@ just before it (a `launches` line after each):
 
  13. mip/small     knap6 through the CLI with --mip, --first-order and
                    --basis-inverse lu: exact -30, certified; the MIP's best
-                   bound -30 and its incumbent exactly feasible;
- 14. mip/real      solve_mip (default cuts, strong branching, dive; 64
-                   nodes a wave, 2048 nodes, 90 s) on the Chu-Beasley
+                   bound -30 and its incumbent exactly feasible; the
+                   first-order crossover's warm finish (fewer pivots than
+                   the cold solve);
+ 14. mip/real      solve_mip (f32 defaults: cuts, strong branching, dive;
+                   64 nodes a wave, cut at 384 nodes) on the Chu-Beasley
                    knapsack of relp_tpu_torch.testing: a rigorous exact
-                   best bound no higher than HiGHS's optimum, an incumbent
-                   (if one is found) exactly feasible and no better; nodes,
-                   batched solves, fallbacks, the certification share;
- 15. first_order/real
+                   best bound above the root LP's and no higher than
+                   HiGHS's optimum, a stated minimum of node LPs solved in
+                   the batch, an incumbent (if one is found) exactly
+                   feasible and no better; nodes, batched solves,
+                   fallbacks, the certification share.  After its launch
+                   counts are read, each kernel is held against its plain
+                   version on the inputs this path gave it (mip/kernel);
+ 15. mip/real64    the same knapsack with --dtype float64 and 16 nodes a
+                   wave to a certified optimum: HiGHS's, an exactly
+                   feasible incumbent, the waves in the batch;
+ 16. first_order/real
                    solve_first_order on main/real's LP: certified, the
-                   pinned digest; PDHG statistics, crossover pivots, wall
-                   split;
- 16. first_order/pdhg
+                   pinned digest; PDHG statistics, crossover pivots (a cold
+                   finish: the crossover basis is refused), wall split;
+ 17. first_order/pdhg
                    pdhg_solve on a 2048 x 8192 LP (f32 A of 67 MB):
                    iterations/s, the device time per iteration of one chunk
-                   against two reads of A, and the KKT residuals of the
-                   returned point in f64 on the host against the card's;
- 17. lu/real, lu/profile
+                   against two reads of A, the KKT residuals of the
+                   returned point in f64 on the host against the card's,
+                   and its primal residual against the same call's in f64
+                   on the CPU (relp_tpu_torch.tools.pdhg_check);
+ 18. lu/real, lu/profile
                    main/real's LP on the LU engine: certified, the pinned
                    digest, ms per pivot; one chunk of it replayed under the
                    profiler for launches and device-busy time per pivot.
@@ -88,8 +99,9 @@ just before it (a `launches` line after each):
 Then a JSON line describing each kernel (six: the scan, the two
 batched-pivot kernels and the probe's three) with its time, its plain
 version's, its bound (the larger of its bytes at 3.35 TB/s and its
-operations at the H100's peak for their type), the library yardstick and
-its launches on each of the paths 13-17, and as the last line {"ok":
+operations at the H100's peak for their type), the library yardstick,
+its error on mip/real's inputs and its launches on each of the paths
+13-18, and as the last line {"ok":
 true, "device": {...}}.  Any failure raises: the exit code is then
 non-zero and no result line is printed.
 """
@@ -240,6 +252,28 @@ def main_path_shape():
     return M, pad_to_multiple(md.nr_columns() + M, 128)
 
 
+def _hold_scan(torch, label, tol, P, A, c, gamma, gamma_q):
+    """fused_price_scan against its plain version on the same inputs: d and
+    gamma finite and within tol * (1 + max|plain|).  Returns (the largest
+    absolute error, "d:rel,gamma:rel")."""
+    from relp_tpu_torch.ops import price_scan
+
+    outs_k = price_scan.fused_price_scan(P, A, c, gamma, gamma_q)
+    outs_p = price_scan.fused_price_scan_reference(P, A, c, gamma, gamma_q)
+    torch.cuda.synchronize()
+    worst, errs = 0.0, []
+    for name, kern, plain in zip(("d", "gamma"), outs_k, outs_p):
+        kern64, plain64 = kern.double(), plain.double()
+        _check(bool(torch.isfinite(kern64).all()), f"{label}: non-finite {name}")
+        err = float((kern64 - plain64).abs().max())
+        scale = float(plain64.abs().max())
+        _check(err <= tol * (1.0 + scale),
+               f"{name} at {label}: |err| {err:.3e} > {tol:g} * (1 + {scale:.3e})")
+        worst = max(worst, err)
+        errs.append(f"{name}:{err / (1.0 + scale):.3e}")
+    return worst, ",".join(errs)
+
+
 def phase_kernel(torch, np, device):
     from relp_tpu_torch.ops import price_scan
 
@@ -270,23 +304,8 @@ def phase_kernel(torch, np, device):
         c = as_t(rng.standard_normal(N))
         g = as_t(1.0 + np.abs(rng.standard_normal(N)))
         gq = as_t(1.0 + abs(float(rng.standard_normal())) * 5)
-        d_k, g_k = price_scan.fused_price_scan(P, A, c, g, gq)
-        torch.cuda.synchronize()
-        d_p, g_p = price_scan.fused_price_scan_reference(P, A, c, g, gq)
-        torch.cuda.synchronize()
-        errs = []
-        for name, kern, plain in (("d", d_k, d_p), ("gamma", g_k, g_p)):
-            kern64, plain64 = kern.double(), plain.double()
-            _check(bool(torch.isfinite(kern64).all()), f"non-finite {name}")
-            err = float((kern64 - plain64).abs().max())
-            scale = float(plain64.abs().max())
-            _check(
-                err <= tol * (1.0 + scale),
-                f"{name} at {M}x{N} {dtype}: |err| {err:.3e} > "
-                f"{tol:g} * (1 + {scale:.3e})",
-            )
-            errors[(M, N, dtype)] = max(errors.get((M, N, dtype), 0.0), err)
-            errs.append(f"{name}:{err / (1.0 + scale):.3e}")
+        errors[(M, N, dtype)], errs = _hold_scan(torch, f"{M}x{N} {dtype}", tol,
+                                                 P, A, c, g, gq)
         kern = lambda: price_scan.fused_price_scan(P, A, c, g, gq)  # noqa: E731
         plain = lambda: price_scan.fused_price_scan_reference(P, A, c, g, gq)  # noqa: E731
         library = lambda: torch.matmul(P, A)  # noqa: E731  (no epilogue)
@@ -301,7 +320,7 @@ def phase_kernel(torch, np, device):
         tableau_gb = M * N * A.element_size() / 1e9
         _line(
             "kernel", shape=f"{M}x{N}", dtype=str(dtype).replace("torch.", ""),
-            rel_err=",".join(errs), tol=f"{tol:g}*(1+scale)",
+            rel_err=errs, tol=f"{tol:g}*(1+scale)",
             kernel_ms=f"{kern_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
             matmul_ms=f"{library_ms:.5f}", bound_ms=f"{bound_ms:.5f}",
             bound_by=bound_by, bound_share=f"{bound_ms / kern_ms:.3f}",
@@ -400,6 +419,7 @@ def phase_main_small(torch):
     _check(result.status is SolveStatus.FINITE_OPTIMUM, f"max flow {result.status}")
     _check(flow == 4 and result.stats.certified, f"max flow {flow}")
     _line("main/small", problem="max_flow", flow=flow, certified=result.stats.certified)
+    return payload["iterations"]
 
 
 def _highs_objective(np):
@@ -714,6 +734,44 @@ _OUT_FIELDS = ("Binv", "xB", "pi", "basis", "in_basis", "gamma", "status",
                "iteration", "degen")
 
 
+def _hold_batch(torch, kern, label, args, kw):
+    """A batched-pivot kernel against batched_pivot_chunk_reference on the
+    same inputs ``args`` (A, c, cand, then the state): two launches
+    bitwise equal, the same bases, statuses and iteration counts as the
+    plain version, the float state within _BATCH_TOL, and on one shared
+    tableau (batch stride 0) the bits of B stacked copies.  Returns (the
+    largest absolute error, {field: error relative to 1 + max|plain|},
+    the kernel's outputs by field)."""
+    from relp_tpu_torch.ops import batch_pivot
+
+    A = args[0]
+    out_k = kern(*args, **kw)
+    out_k2 = kern(*args, **kw)
+    torch.cuda.synchronize()
+    out_p = batch_pivot.batched_pivot_chunk_reference(*args, **kw)
+    torch.cuda.synchronize()
+    k, k2, p = (dict(zip(_OUT_FIELDS, o)) for o in (out_k, out_k2, out_p))
+    for f in _OUT_FIELDS:
+        _check(torch.equal(k[f], k2[f]), f"{label}: {f} differs between two launches")
+    for f in ("basis", "in_basis", "status", "iteration"):
+        same = (k[f] == p[f]).reshape(k[f].shape[0], -1).all(dim=1)
+        _check(bool(same.all()), f"{label}: {f} differs for LPs "
+               f"{torch.nonzero(~same).flatten().tolist()[:10]}")
+    rel, worst = {}, 0.0
+    for f, t in _BATCH_TOL.items():
+        scale = 1.0 + float(p[f].abs().max())
+        err = float((k[f].double() - p[f].double()).abs().max())
+        rel[f], worst = err / scale, max(worst, err)
+        _check(err <= t * scale, f"{label}: {f} |err| {err:.3e} > {t:g} * {scale:.3e}")
+    if A.stride(0) == 0:  # one tableau for the batch: the bits of B copies
+        out_c = dict(zip(_OUT_FIELDS, kern(A.contiguous(), *args[1:], **kw)))
+        torch.cuda.synchronize()
+        for f in _OUT_FIELDS:
+            _check(torch.equal(k[f], out_c[f]),
+                   f"{label}: {f} differs between one shared tableau and B copies")
+    return worst, rel, k
+
+
 def phase_batch_kernel(torch, np):
     """Each batched-pivot kernel against batched_pivot_chunk_reference, from
     the same state, one 25-pivot chunk, with and without stop_at_zero."""
@@ -745,39 +803,10 @@ def phase_batch_kernel(torch, np):
                 st.gamma, st.status, st.iteration, st.degen_count)
         for stop_at_zero in stops:
             kw = dict(chunk=25, stop_at_zero=stop_at_zero, **tol)
-            out_k = kern(*args, **kw)
-            out_k2 = kern(*args, **kw)
-            torch.cuda.synchronize()
-            out_p = batch_pivot.batched_pivot_chunk_reference(*args, **kw)
-            torch.cuda.synchronize()
-            k, k2, p = (dict(zip(_OUT_FIELDS, o)) for o in (out_k, out_k2, out_p))
-            for f in _OUT_FIELDS:
-                _check(torch.equal(k[f], k2[f]), f"{label} {variant}: {f} differs "
-                       "between two launches")
-            for f in ("basis", "in_basis", "status", "iteration"):
-                same = (k[f] == p[f]).reshape(k[f].shape[0], -1).all(dim=1)
-                _check(bool(same.all()), f"{label} {variant} stop_at_zero="
-                       f"{stop_at_zero}: {f} differs for LPs "
-                       f"{torch.nonzero(~same).flatten().tolist()[:10]}")
-            rel = {}
-            for f, t in _BATCH_TOL.items():
-                scale = 1.0 + float(p[f].abs().max())
-                err = float((k[f].double() - p[f].double()).abs().max())
-                rel[f] = err / scale
-                _check(err <= t * scale, f"{label} {variant}: {f} |err| "
-                       f"{err:.3e} > {t:g} * {scale:.3e}")
-            # (largest absolute error, largest error relative to 1 + max|plain|)
-            errors[(variant, label, stop_at_zero)] = (max(
-                float((k[f].double() - p[f].double()).abs().max())
-                for f in _BATCH_TOL
-            ), max(rel.values()))
+            abs_err, rel, k = _hold_batch(torch, kern, f"{label} {variant} "
+                                          f"stop_at_zero={stop_at_zero}", args, kw)
+            errors[(variant, label, stop_at_zero)] = (abs_err, max(rel.values()))
             shared = A.stride(0) == 0
-            if shared:  # one tableau for the batch: the bits of B copies
-                out_c = dict(zip(_OUT_FIELDS, kern(A.contiguous(), *args[1:], **kw)))
-                torch.cuda.synchronize()
-                for f in _OUT_FIELDS:
-                    _check(torch.equal(k[f], out_c[f]), f"{label} {variant}: {f} "
-                           "differs between one shared tableau and B copies")
             kern_ms = _events_ms(torch, lambda: kern(*args, **kw))
             plain_ms = _events_ms(
                 torch, lambda: batch_pivot.batched_pivot_chunk_reference(*args, **kw)
@@ -1111,10 +1140,12 @@ def _rows_hold(gf, values) -> bool:
     return True
 
 
-def phase_mip_small():
+def phase_mip_small(cold_pivots):
     """knap6 through the CLI as a MIP, by PDHG + crossover and on the LU
     engine (CUDA by default): exact -30, certified; the MIP's best bound is
-    -30 and its incumbent holds every row exactly."""
+    -30 and its incumbent holds every row exactly; the crossover's warm
+    finish takes fewer pivots than main/small's cold solve
+    (``cold_pivots``)."""
     from relp_tpu_torch.__main__ import main as cli
     from relp_tpu_torch.io import load_general_form
 
@@ -1136,6 +1167,14 @@ def phase_mip_small():
                    "knap6 --mip: the incumbent breaks a row")
             fields.update(best_bound=payload["best_bound"], gap=payload["gap"],
                           nodes_solved=payload["nodes_solved"], incumbent_feasible=True)
+        elif mode == ["--first-order"]:
+            # The crossover basis is taken: the warm finish needs fewer
+            # pivots than the cold solve of main/small.
+            _check(payload["iterations"] < cold_pivots,
+                   f"knap6 --first-order: {payload['iterations']} pivots, the cold "
+                   f"solve {cold_pivots}: the crossover basis was refused")
+            fields.update(pivots=payload["iterations"], cold_pivots=cold_pivots,
+                          crossover_warm=True)
         else:
             fields.update(pivots=payload["iterations"],
                           phase1_pivots=payload["phase1_iterations"])
@@ -1143,56 +1182,74 @@ def phase_mip_small():
 
 
 @contextlib.contextmanager
-def _counting_solves(tally):
-    """Count the LP solves that branch & bound asks for (its lazy imports
-    read these module attributes), the LPs of each batch and its single-LP
-    fallbacks, and time every exact certification of the drivers (also
-    the ones whose result a fallback replaces)."""
-    from relp_tpu_torch.parallel import batch_driver
-    from relp_tpu_torch.simplex import driver
-
-    inside = []
-
-    def batch(providers, *args, **kwargs):
-        inside.append(True)
-        try:
-            results = kept[(batch_driver, "solve_batch")](providers, *args, **kwargs)
-        finally:
-            inside.pop()
-        tally["batched_solves"] += 1
-        tally["batched_lps"] += len(results)
-        tally["fallbacks"] += sum(bool(r.stats.batch_fallback) for r in results)
-        return results
-
-    def single(*args, **kwargs):
-        if not inside:  # a batch's fallbacks are counted with the batch
-            tally["single_solves"] += 1
-        return kept[(driver, "solve_relaxation")](*args, **kwargs)
-
-    def timed(fn):
-        def run(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                tally["certify_s"] += time.perf_counter() - t0
-        return run
-
-    wrappers = {(batch_driver, "solve_batch"): batch, (driver, "solve_relaxation"): single}
-    for module, name in ((batch_driver, "certify_and_repair"),
-                         (driver, "certify_and_repair"),
-                         (driver, "certify_infeasible"), (driver, "certify_unbounded")):
-        wrappers[(module, name)] = timed(getattr(module, name))
-    kept = {key: getattr(*key) for key in wrappers}
-    tally.update(batched_solves=0, batched_lps=0, fallbacks=0, single_solves=0,
-                 certify_s=0.0)
-    for (module, name), wrapper in wrappers.items():
-        setattr(module, name, wrapper)
+def _wrapped(module, name, wrapper):
+    """``module.name`` replaced by ``wrapper(original)`` inside the block."""
+    kept = getattr(module, name)
+    setattr(module, name, wrapper(kept))
     try:
         yield
     finally:
-        for (module, name), fn in kept.items():
-            setattr(module, name, fn)
+        setattr(module, name, kept)
+
+
+@contextlib.contextmanager
+def _counting_solves(tally):
+    """Count the LP solves that branch & bound asks for through the module
+    attributes its lazy imports read: the solve_batch calls, their LPs and
+    single-LP fallbacks (``stats.batch_fallback``), the single-LP solves
+    outside a batch, and the certification time the returned results
+    report (``stats.certify_time_s``).  ``tally["inside"]`` is the depth of
+    solve_batch calls in progress."""
+    from relp_tpu_torch.parallel import batch_driver
+    from relp_tpu_torch.simplex import driver
+
+    tally.update(batched_solves=0, batched_lps=0, fallbacks=0, single_solves=0,
+                 certify_s=0.0, inside=0)
+
+    def batch(solve_batch):
+        def run(providers, *args, **kwargs):
+            tally["inside"] += 1
+            try:
+                results = solve_batch(providers, *args, **kwargs)
+            finally:
+                tally["inside"] -= 1
+            tally["batched_solves"] += 1
+            tally["batched_lps"] += len(results)
+            tally["fallbacks"] += sum(bool(r.stats.batch_fallback) for r in results)
+            tally["certify_s"] += sum(r.stats.certify_time_s for r in results)
+            return results
+        return run
+
+    def single(solve_relaxation):
+        def run(*args, **kwargs):
+            result = solve_relaxation(*args, **kwargs)
+            if not tally["inside"]:  # a batch's fallbacks count with the batch
+                tally["single_solves"] += 1
+                tally["certify_s"] += result.stats.certify_time_s
+            return result
+        return run
+
+    with _wrapped(batch_driver, "solve_batch", batch), \
+            _wrapped(driver, "solve_relaxation", single):
+        yield
+
+
+def _keeping_inputs(module, name, kept, when=lambda *args: True):
+    """``_wrapped``: the inputs of the first call of ``module.name`` for
+    which ``when(*args)`` holds are kept in ``kept[name]`` as (args, kwargs),
+    contiguous tensors cloned (a tableau expanded over a batch is read-only
+    and kept as it is)."""
+    import torch
+
+    def wrapper(fn):
+        def run(*args, **kwargs):
+            if name not in kept and when(*args):
+                kept[name] = (tuple(a.clone() if torch.is_tensor(a) and a.is_contiguous()
+                                    else a for a in args), dict(kwargs))
+            return fn(*args, **kwargs)
+        return run
+
+    return _wrapped(module, name, wrapper)
 
 
 def _highs_mip(np, W, capacity, profit):
@@ -1209,53 +1266,76 @@ def _highs_mip(np, W, capacity, profit):
     return res.status, fun, getattr(res, "mip_dual_bound", None)
 
 
-def phase_mip_real(torch, np):
-    """solve_mip in its default configuration (Gomory and cover cuts, strong
-    branching, the rounding dive) on the Chu-Beasley knapsack, 64 nodes a
-    wave, at most 2048 nodes and 90 s: a rigorous exact best bound that
-    HiGHS's optimum respects, and an incumbent (where one is found) that
-    holds every row exactly and is no better than HiGHS's optimum."""
+_HIGHS = {}
+
+
+def _mknap_highs(np):
+    """HiGHS on the Chu-Beasley knapsack, once: (status, objective, bound)."""
+    from relp_tpu_torch.testing import MKNAP, mknap_data
+
+    if not _HIGHS:
+        _HIGHS["result"] = _highs_mip(np, *mknap_data(**MKNAP))
+    return _HIGHS["result"]
+
+
+def _solve_mknap(torch, np, label, cfg, min_in_batch, tally, **limits):
+    """solve_mip on the Chu-Beasley knapsack with the LP solves counted;
+    the checks every run of it passes: a rigorous exact best bound strictly
+    above the root LP's and no higher than HiGHS's optimum, at least
+    ``min_in_batch`` node LPs solved inside solve_batch (not sent to the
+    single-LP fallback), and an incumbent (where one is found) that holds
+    every row exactly, is the objective of its values, and is no better
+    than HiGHS's optimum.  Prints the run's line; returns the MIP result,
+    the counts in ``tally`` (``_counting_solves``)."""
     from fractions import Fraction
 
-    from relp_tpu_torch.config import SolverConfig
     from relp_tpu_torch.mip import solve_mip
     from relp_tpu_torch.testing import MKNAP, mknap, mknap_data
 
-    tally = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with _counting_solves(tally):
-        mip = solve_mip(mknap(**MKNAP), SolverConfig(), batch_width=64,
-                        node_limit=2048, time_limit_s=90)
+        mip = solve_mip(mknap(**MKNAP), cfg, **limits)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    W, capacity, profit = mknap_data(**MKNAP)
+    _check(tally["batched_solves"] > 0 and tally["single_solves"] > 0,
+           f"{label}: counted no solves ({tally}): the counting missed the path")
+    in_batch = tally["batched_lps"] - tally["fallbacks"]
+    _check(in_batch >= min_in_batch, f"{label}: {in_batch} node LPs solved in the "
+           f"batch, fewer than {min_in_batch}")
     _check(mip.best_bound is not None and mip.best_bound_exact,
-           f"mip/real: no rigorous best bound ({mip.best_bound}, exact={mip.best_bound_exact})")
-    status, z_highs, bound_highs = _highs_mip(np, W, capacity, profit)
+           f"{label}: no rigorous best bound ({mip.best_bound}, "
+           f"exact={mip.best_bound_exact})")
+    _check(mip.best_bound > mip.root_objective,
+           f"{label}: best bound {mip.best_bound} not above the root LP's "
+           f"{mip.root_objective}")
+    status, z_highs, bound_highs = _mknap_highs(np)
     if status == 0:  # optimal: the integer optimum is HiGHS's value rounded
         z = round(z_highs)
-        _check(mip.best_bound <= z, f"mip/real: best bound {mip.best_bound} above "
+        _check(mip.best_bound <= z, f"{label}: best bound {mip.best_bound} above "
                f"HiGHS's optimum {z}")
     incumbent = "none"
     if mip.objective is not None:
+        _W, _capacity, profit = mknap_data(**MKNAP)
         values = dict(mip.solution.solution_values)
         x = np.array([int(Fraction(values.get(f"x{j}", 0))) for j in range(len(profit))])
-        _check(_rows_hold(mknap(**MKNAP), values), "mip/real: the incumbent breaks a row")
+        _check(_rows_hold(mknap(**MKNAP), values), f"{label}: the incumbent breaks a row")
         _check(Fraction(int(-(profit @ x))) == mip.objective,
-               f"mip/real: objective {mip.objective} is not the incumbent's")
+               f"{label}: objective {mip.objective} is not the incumbent's")
         if status == 0:
-            _check(z <= mip.objective, f"mip/real: incumbent {mip.objective} beats "
+            _check(z <= mip.objective, f"{label}: incumbent {mip.objective} beats "
                    f"HiGHS's optimum {z}")
         incumbent = str(mip.objective)
     if status != 0:  # HiGHS stopped early: the two intervals must overlap
         top = float(mip.objective) if mip.objective is not None else float("inf")
-        _check(float(mip.best_bound) <= z_highs and (bound_highs is None or bound_highs <= top),
-               f"mip/real: [{mip.best_bound}, {top}] misses HiGHS's "
+        _check(float(mip.best_bound) <= z_highs
+               and (bound_highs is None or bound_highs <= top),
+               f"{label}: [{mip.best_bound}, {top}] misses HiGHS's "
                f"[{bound_highs}, {z_highs}]")
     _line(
-        "mip/real", instance="mknapcb-class", m=MKNAP["m"], n=MKNAP["n"],
-        tightness=MKNAP["tightness"], seed=MKNAP["seed"], status=mip.status.value,
+        label, instance="mknapcb-class", m=MKNAP["m"], n=MKNAP["n"],
+        tightness=MKNAP["tightness"], seed=MKNAP["seed"], dtype=cfg.dtype,
+        **limits, status=mip.status.value,
         incumbent=incumbent, incumbent_feasible=incumbent != "none" or "n/a",
         dive_lps=mip.dive_lps, dive_incumbent=mip.dive_incumbent,
         nodes_solved=mip.nodes_solved, nodes_pruned=mip.nodes_pruned,
@@ -1265,10 +1345,114 @@ def phase_mip_real(torch, np):
         certified=mip.certified, root_objective=f"{float(mip.root_objective):.6f}",
         highs_status=status, highs_objective=z_highs, highs_bound=bound_highs,
         batched_solves=tally["batched_solves"], batched_lps=tally["batched_lps"],
-        batch_fallbacks=tally["fallbacks"], single_solves=tally["single_solves"],
+        batch_fallbacks=tally["fallbacks"], in_batch=in_batch,
+        single_solves=tally["single_solves"],
         wall_s=f"{wall:.3f}", certify_s=f"{tally['certify_s']:.3f}",
         certify_share=f"{tally['certify_s'] / wall:.3f}",
     )
+    return mip
+
+
+# Node LPs that mip/real must solve inside the batch: 35 of 394 did on an
+# H100 (383 nodes; PERF.md), the others fell back to the single-LP driver.
+_MIN_IN_BATCH_F32 = 16
+
+
+def phase_mip_real(torch, np):
+    """solve_mip in its default configuration (f32; Gomory and cover cuts,
+    strong branching, the rounding dive) on the Chu-Beasley knapsack, 64
+    nodes a wave, cut at 384 nodes (_solve_mknap's checks).  The node
+    count, not the clock, ends it, so that every host reaches a whole wave
+    of node LPs too deep for the resident kernel (it runs the blocked one;
+    none came in the 255 nodes a slow host reached in 90 s); 300 s only
+    stop a runaway.  The
+    inputs of the first launch of each batched-pivot kernel on a whole
+    node wave (its cold batch) and of the first scan launch inside a batch
+    (a node LP that
+    fell back to the single-LP driver) are kept: returns the replay that
+    holds each kernel against its plain version on them, to run once the
+    path's launches are read."""
+    from relp_tpu_torch.config import SolverConfig
+    from relp_tpu_torch.ops import batch_pivot
+    from relp_tpu_torch.simplex import kernels
+
+    tally, kept = {}, {}
+
+    def wave(A, *_rest):  # a whole node wave (strong branching's are narrower)
+        return A.shape[0] == 64
+
+    with _keeping_inputs(batch_pivot, "batched_pivot_chunk", kept, when=wave), \
+            _keeping_inputs(batch_pivot, "batched_pivot_chunk_blocked", kept,
+                            when=wave), \
+            _keeping_inputs(kernels, "fused_price_scan", kept,
+                            when=lambda *_args: tally.get("inside", 0) > 0):
+        _solve_mknap(torch, np, "mip/real", SolverConfig(), _MIN_IN_BATCH_F32,
+                     tally, batch_width=64, node_limit=384, time_limit_s=300)
+    missing = {"batched_pivot_chunk", "batched_pivot_chunk_blocked",
+               "fused_price_scan"} - set(kept)
+    _check(not missing, f"mip/real never launched {sorted(missing)}")
+    return lambda: _replay_mip_kernels(torch, kept)
+
+
+def _replay_mip_kernels(torch, kept):
+    """Each kernel of mip/real against its plain version on the inputs the
+    path gave it (``phase_mip_real``), with the tolerances of
+    phase_kernel and phase_batch_kernel.  Returns {kernel: largest
+    absolute error}."""
+    from relp_tpu_torch.ops import batch_pivot
+
+    errors = {}
+    for name in ("batched_pivot_chunk", "batched_pivot_chunk_blocked"):
+        args, kw = kept[name]
+        before = _launch_counts()[name]
+        abs_err, rel, out = _hold_batch(torch, getattr(batch_pivot, name),
+                                        f"mip/real {name}", args, kw)
+        launched = _launch_counts()[name] - before
+        _check(launched >= 2, f"mip/real replay: {name} launched {launched} times")
+        pivots = out["iteration"] - args[10]
+        errors[name] = abs_err
+        _line("mip/kernel", kernel=name, shape="x".join(map(str, args[0].shape)),
+              launched=launched,
+              chunk=kw["chunk"], stop_at_zero=kw.get("stop_at_zero", False),
+              pivots=int(pivots.sum()), min_lp_pivots=int(pivots.min()),
+              identical="basis,in_basis,status,iteration", repeat_bitwise=True,
+              rel_err=",".join(f"{f}:{v:.2e}" for f, v in rel.items()))
+    args, _kw = kept["fused_price_scan"]
+    before = _launch_counts()["fused_price_scan"]
+    errors["fused_price_scan"], errs = _hold_scan(torch, "mip/real node LP", 1e-5,
+                                                  *args)
+    _check(_launch_counts()["fused_price_scan"] == before + 1,
+           "mip/real replay: the scan kernel did not launch")
+    _line("mip/kernel", kernel="fused_price_scan", launched=1,
+          shape="x".join(map(str, args[1].shape)), dtype=str(args[1].dtype),
+          rel_err=errs, tol="1e-05*(1+scale)")
+    return errors
+
+
+def phase_mip_real64(torch, np):
+    """The same knapsack to a proven optimum: solve_mip with --dtype float64
+    and the CLI's default 16 nodes a wave (f64 node LPs pass the batch
+    driver's residual gates, so the waves stay in the batch).  Besides
+    _solve_mknap's checks: optimal and certified, the objective HiGHS's
+    optimum, the best bound equal to it, nearly every node LP solved in the
+    batch."""
+    from relp_tpu_torch.config import SolverConfig
+    from relp_tpu_torch.simplex import SolveStatus
+
+    tally = {}
+    mip = _solve_mknap(torch, np, "mip/real64", SolverConfig(dtype="float64"), 1,
+                       tally, batch_width=16, node_limit=4096, time_limit_s=300)
+    status, z_highs, _bound = _mknap_highs(np)
+    _check(mip.status is SolveStatus.FINITE_OPTIMUM and mip.certified,
+           f"mip/real64: {mip.status} certified={mip.certified}")
+    _check(mip.objective is not None and mip.best_bound == mip.objective,
+           f"mip/real64: objective {mip.objective}, best bound {mip.best_bound}")
+    if status == 0:
+        _check(mip.objective == round(z_highs),
+               f"mip/real64: optimum {mip.objective}, HiGHS {z_highs}")
+    _check(10 * tally["fallbacks"] <= tally["batched_lps"],
+           f"mip/real64: {tally['fallbacks']} of {tally['batched_lps']} node LPs "
+           "left the batch")
 
 
 def _reconstructed_objective(gf, md, result):
@@ -1280,7 +1464,10 @@ def _reconstructed_objective(gf, md, result):
 def phase_first_order_real(torch):
     """solve_first_order (PDHG + crossover) on main/real's LP after the same
     presolve and standardize as the CLI: certified, main/real's pinned
-    digest; the PDHG statistics, the crossover's pivots, the wall split."""
+    digest; the PDHG statistics, the crossover's pivots, the wall split.
+    PDHG stops unconverged, the crossover refuses its basis and the finish
+    is a cold solve: this phase covers that route; mip/small's
+    --first-order covers the warm finish."""
     from relp_tpu_torch.config import SolverConfig
     from relp_tpu_torch.firstorder import solve_first_order
     from relp_tpu_torch.simplex import SolveStatus
@@ -1321,53 +1508,63 @@ def phase_first_order_real(torch):
     )
 
 
-def _kkt64(np, A, b, c, u, x, y):
-    """pdhg._kkt in f64 numpy (an independent evaluation)."""
-    pr = np.linalg.norm(A @ x - b) / (1.0 + np.linalg.norm(b))
-    lam = c - y @ A
-    finite = np.isfinite(u)
-    du = np.linalg.norm(np.where(finite, 0.0, np.maximum(-lam, 0.0))) / (
-        1.0 + np.linalg.norm(c))
-    pobj = float(c @ x)
-    dobj = float(b @ y + np.sum(np.where(finite, np.where(u > 0, u, 0.0), 0.0)
-                                * np.minimum(lam, 0.0)))
-    return pr, du, abs(pobj - dobj) / (1.0 + abs(pobj) + abs(dobj))
+# The card's f32 PDHG point may leave at most this many times the primal
+# residual of the same call in f64 on the CPU (testing.PDHG_F64_CPU): a
+# point that made no progress leaves about 1.  f32 left 1.65 times it on
+# an H100 (PERF.md).
+_PDHG_PROGRESS_FACTOR = 10.0
 
 
 def phase_first_order_pdhg(torch, np, device):
     """pdhg_solve alone on the 2048 x 8192 LP of relp_tpu_torch.testing (f32,
-    its matrix larger than L2): iterations/s and the device time of one
-    200-iteration chunk against its bound (A read twice per iteration at
-    3.35 TB/s); the KKT residuals of the returned point in f64 on the host
-    against the port's f32 evaluation on the card."""
+    its matrix larger than L2; tools.pdhg_check's call): iterations/s and
+    the device time of one 200-iteration chunk against its bound (A read
+    twice per iteration at 3.35 TB/s); the KKT residuals of the returned
+    point in f64 on the host against the port's f32 evaluation on the card,
+    and its primal residual against the same call's in f64 on the CPU."""
     from relp_tpu_torch.firstorder import pdhg
-    from relp_tpu_torch.testing import PDHG_SIZE, pdhg_lp
+    from relp_tpu_torch.testing import PDHG_F64_CPU
+    from relp_tpu_torch.tools import pdhg_check
 
-    A, b, c, u = pdhg_lp(**PDHG_SIZE)
-    max_iters = 20_000
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    x, y, st = pdhg.pdhg_solve(A, b, c, u, tol=1e-6, max_iters=max_iters,
-                               device=device)
+    x, y, st, scaled, host = pdhg_check.run(device)
     wall = time.perf_counter() - t0
     _check(np.all(np.isfinite(x)) and np.all(np.isfinite(y)), "first_order/pdhg: non-finite")
-    As, bs, cs, us, d_row, d_col = pdhg.scale_problem(A, b, c, u, np.float32)
-    xs, ys = x / d_col, y / d_row  # back to the iterated (scaled) system
-    host = _kkt64(np, *(v.astype(np.float64) for v in (As, bs, cs, us, xs, ys)))
+    As, bs, cs, us, xs, ys = scaled
     on_card = [torch.as_tensor(v, device=device) for v in (As, bs, cs, us)]
     xs_d, ys_d = (torch.as_tensor(v.astype(np.float32), device=device) for v in (xs, ys))
     card = pdhg._kkt(*on_card, xs_d, ys_d)
-    # The card evaluates in f32: allow its rounding of A x and y A (eps32
-    # times the magnitudes summed) besides 1e-3 relative.
-    eps = float(np.finfo(np.float32).eps)
-    floor = (
-        4 * eps * np.linalg.norm(np.abs(As) @ np.abs(xs) + np.abs(bs)) / (1 + np.linalg.norm(bs)),
-        4 * eps * np.linalg.norm(np.abs(ys) @ np.abs(As) + np.abs(cs)) / (1 + np.linalg.norm(cs)),
-        4 * eps * 10.0,
-    )
-    for name, h, d, f in zip(("primal", "dual", "gap"), host, card, floor):
-        _check(abs(h - d) <= 1e-3 * max(h, d) + f,
-               f"first_order/pdhg {name} residual: host {h:.6e} card {d:.6e} floor {f:.1e}")
+    card64 = pdhg._kkt(*(torch.as_tensor(np.asarray(v, np.float64), device=device)
+                         for v in scaled))
+    # Rounding floors of an evaluation in precision eps: eps times the
+    # magnitudes summed in A x - b, c - y A, and the two objectives, the
+    # dual one with c - y A weighted by the finite bounds (times 4).
+    A64, b64, c64, u64, x64, y64 = (np.asarray(v, np.float64) for v in scaled)
+    yA = np.abs(y64) @ np.abs(A64)
+    lam = c64 - y64 @ A64
+    u_fin = np.where(np.isfinite(u64), u64, 0.0)
+    pobj = float(c64 @ x64)
+    dobj = float(b64 @ y64 + np.sum(u_fin * np.minimum(lam, 0.0)))
+    magnitudes = np.array([
+        np.linalg.norm(np.abs(A64) @ np.abs(x64) + np.abs(b64)) / (1 + np.linalg.norm(b64)),
+        np.linalg.norm(yA + np.abs(c64)) / (1 + np.linalg.norm(c64)),
+        (np.abs(c64) @ np.abs(x64) + np.abs(b64) @ np.abs(y64)
+         + np.sum(u_fin * (np.abs(c64) + yA))) / (1 + abs(pobj) + abs(dobj)),
+    ])
+    # The card's f64 evaluation agrees with the host's to 1e-9 relative;
+    # its f32 one, which pdhg_solve makes, to 1e-3 besides its f32 floor.
+    for dtype, got, rel in ((np.float64, card64, 1e-9), (np.float32, card, 1e-3)):
+        floor = 4 * float(np.finfo(dtype).eps) * magnitudes
+        for name, h, d, f in zip(("primal", "dual", "gap"), host, got, floor):
+            _check(abs(h - d) <= rel * max(h, d) + f,
+                   f"first_order/pdhg {name} residual: host {h:.6e} card "
+                   f"{np.dtype(dtype).name} {d:.6e} floor {f:.1e}")
+    progress = _PDHG_PROGRESS_FACTOR * PDHG_F64_CPU["primal"]
+    _check(st.iterations == PDHG_F64_CPU["iterations"] and host[0] <= progress,
+           f"first_order/pdhg: {st.iterations} iterations, primal residual "
+           f"{host[0]:.3e} above {progress:.3e} ({_PDHG_PROGRESS_FACTOR:g} times "
+           "the f64 CPU run's)")
     # One chunk on the card between CUDA events, from the returned point.
     A_d, b_d, c_d, u_d = on_card
     chunk = 200
@@ -1376,9 +1573,9 @@ def phase_first_order_pdhg(torch, np, device):
     bytes_per_iter = 2 * A_d.numel() * 4
     bound_ms, bound_by = _bound(bytes_per_iter, 4.0 * A_d.numel())
     _line(
-        "first_order/pdhg", m=A.shape[0], n=A.shape[1], dtype="float32",
+        "first_order/pdhg", m=As.shape[0], n=As.shape[1], dtype="float32",
         iterations=st.iterations, restarts=st.restarts, converged=st.converged,
-        wall_s=f"{wall:.3f}", iterations_per_s=f"{st.iterations / wall:.0f}",
+        wall_s=f"{wall:.3f}", iterations_per_s=f"{st.iterations / st.wall_time_s:.0f}",
         chunk_ms_per_iteration=f"{ms / chunk:.5f}",
         bound_ms_per_iteration=f"{bound_ms:.5f}", bound_by=bound_by,
         bound_share=f"{bound_ms / (ms / chunk):.3f}",
@@ -1387,6 +1584,10 @@ def phase_first_order_pdhg(torch, np, device):
         dual_residual=f"{st.dual_residual:.3e}", gap=f"{st.gap:.3e}",
         returned_point_host_f64=",".join(f"{v:.4e}" for v in host),
         returned_point_card_f32=",".join(f"{v:.4e}" for v in card),
+        returned_point_card_f64=",".join(f"{v:.4e}" for v in card64),
+        card_f32_floor=",".join(f"{v:.1e}" for v in floor),
+        f64_cpu_primal=f"{PDHG_F64_CPU['primal']:.4e}",
+        primal_bound=f"{progress:.4e}",
     )
 
 
@@ -1403,40 +1604,37 @@ def phase_lu_real(torch):
         generated_lp,
     )
 
-    saved = []
-    kept = engine.LUEngine.run_chunk
+    kept, calls = {}, []
 
-    def run_chunk(self, state, *args, **kwargs):
-        if len(saved) < 20:  # keep the 20th chunk's inputs for the replay
-            saved.append((self, state, args, kwargs))
-        return kept(self, state, *args, **kwargs)
+    def twentieth(*_args):  # keep the 20th chunk's inputs for the replay
+        calls.append(1)
+        return len(calls) == 20
 
-    engine.LUEngine.run_chunk = run_chunk
-    try:
+    with _keeping_inputs(engine.LUEngine, "run_chunk", kept, when=twentieth):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result, solution = solve_general_form(generated_lp(**REAL_SIZE),
                                               SolverConfig(basis_inverse="lu"))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        engine.LUEngine.run_chunk = kept
     _check(result.status is SolveStatus.FINITE_OPTIMUM and result.stats.certified,
            f"lu/real: {result.status} certified={result.stats.certified}")
     digest = hashlib.sha256(str(solution.objective_value).encode()).hexdigest()
     _check(digest == REAL_SIZE_OBJECTIVE_SHA256, f"lu/real digest {digest}")
+    _check("run_chunk" in kept, f"lu/real: {len(calls)} chunks, fewer than 20")
     pivots = result.stats.iterations + result.stats.phase1_iterations
     solve_s = result.stats.wall_time_s - result.stats.certify_time_s
-    self, state, args, kwargs = saved[-1]
-    out = kept(self, state, *args, **kwargs)
+    (self, state, *args), kwargs = kept["run_chunk"]
+    run_chunk = engine.LUEngine.run_chunk
+    out = run_chunk(self, state, *args, **kwargs)
     chunk_pivots = int(out.iteration) - int(state.iteration)
     _check(chunk_pivots > 0, "lu/real: the replayed chunk took no pivot")
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    int(kept(self, state, *args, **kwargs).iteration)
+    int(run_chunk(self, state, *args, **kwargs).iteration)
     chunk_ms = (time.perf_counter() - t1) * 1e3
     busy_ms, launches, top = _device_busy(
-        torch, lambda: int(kept(self, state, *args, **kwargs).iteration), chunk_pivots)
+        torch, lambda: int(run_chunk(self, state, *args, **kwargs).iteration), chunk_pivots)
     _line(
         "lu/real", m=REAL_SIZE["m"], n=REAL_SIZE["n"], status=result.status.value,
         certified=True, digest_ok=True, pivots=result.stats.iterations,
@@ -1448,12 +1646,36 @@ def phase_lu_real(torch):
         solve_ms_per_pivot=f"{solve_s / pivots * 1e3:.4f}",
     )
     _line(
-        "lu/profile", chunk=len(saved), chunk_pivots=chunk_pivots,
+        "lu/profile", chunk=20, chunk_pivots=chunk_pivots,
         chunk_ms_per_pivot=f"{chunk_ms / chunk_pivots:.4f}",
         device_busy_ms_per_pivot=f"{busy_ms:.4f}" if busy_ms else "not measured",
         kernel_launches_per_pivot=f"{launches / chunk_pivots:.1f}",
         top_kernels=";".join(f"{name}:{ms:.4f}ms" for name, ms in top),
     )
+
+
+def phase_other_modes(torch, np, device, knap6_pivots):
+    """The other solve modes, each path's launch counts from 0 just before
+    it and read just after it; then mip/real's kernels against their plain
+    versions on the inputs that path gave them (launches not counted).
+    Returns ({path: launches by kernel}, {kernel: mip/real's error})."""
+    by_path, replays = {}, {}
+    for path, run in (
+        ("mip/small", lambda: phase_mip_small(knap6_pivots)),
+        ("mip/real", lambda: phase_mip_real(torch, np)),
+        ("mip/real64", lambda: phase_mip_real64(torch, np)),
+        ("first_order/real", lambda: phase_first_order_real(torch)),
+        ("first_order/pdhg", lambda: phase_first_order_pdhg(torch, np, device)),
+        ("lu/real", lambda: phase_lu_real(torch)),
+    ):
+        _zero_launch_counts()
+        replays[path] = run()
+        by_path[path] = _launch_counts()
+        _line("launches", path=path, **by_path[path])
+    for path in ("mip/small", "mip/real", "mip/real64"):
+        _check(by_path[path]["fused_price_scan"] > 0,
+               f"{path} never launched the scan kernel")
+    return by_path, replays["mip/real"]()
 
 
 _REFUSED = ("jax", "jaxlib", "relp_tpu")
@@ -1493,7 +1715,7 @@ def main() -> int:
     batch_errors, batch_times = phase_batch_kernel(torch, np)
 
     price_scan.LAUNCHES = 0  # counts from here on are the main path's
-    phase_main_small(torch)
+    knap6_pivots = phase_main_small(torch)
     phase_main_real(torch, np)
     launches = price_scan.LAUNCHES
     _check(launches > 0, "the main path never launched the scan kernel")
@@ -1515,22 +1737,7 @@ def main() -> int:
     phase_batch_warm(torch, np)
     phase_batch_chunk(torch, np)
 
-    # The other solve modes, each path's counts from 0 just before it.
-    by_path = {}
-    for path, run in (
-        ("mip/small", phase_mip_small),
-        ("mip/real", lambda: phase_mip_real(torch, np)),
-        ("first_order/real", lambda: phase_first_order_real(torch)),
-        ("first_order/pdhg", lambda: phase_first_order_pdhg(torch, np, device)),
-        ("lu/real", lambda: phase_lu_real(torch)),
-    ):
-        _zero_launch_counts()
-        run()
-        by_path[path] = _launch_counts()
-        _line("launches", path=path, **by_path[path])
-    for path in ("mip/small", "mip/real"):
-        _check(by_path[path]["fused_price_scan"] > 0,
-               f"{path} never launched the scan kernel")
+    by_path, mip_errors = phase_other_modes(torch, np, device, knap6_pivots)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in _REFUSED)
     _check(not loaded, f"imported: {loaded}")
 
@@ -1543,6 +1750,7 @@ def main() -> int:
         "replaces": "relp_tpu/ops/pallas_scan.py:102",
         "launches": launches,
         "max_abs_err": errors[main_case],
+        "mip_real_abs_err": mip_errors["fused_price_scan"],
         "ms": kern_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
@@ -1568,6 +1776,7 @@ def main() -> int:
             # absolute error follows the scale of the largest field.
             "max_abs_err": max(a for a, _r in errs),
             "max_rel_err": max(r for _a, r in errs),
+            "mip_real_abs_err": mip_errors[fn],
             "ms": batch_times[case][0],
             "plain_ms": batch_times[case][1],
             "bound_ms": batch_times[case][2],

@@ -99,6 +99,11 @@ def mknap(m: int, n: int, tightness: float, seed: int) -> GeneralForm:
 # The LP of chip_smoke's first_order/pdhg phase: 2048 x 8192 in equality
 # form, its f32 matrix (67 MB) larger than the H100's 50 MB L2.
 PDHG_SIZE = dict(m=2048, n=8192, seed=7)
+# The same PDHG call in f64 on the CPU (tol 1e-6, 20,000 iterations), with
+# the returned point's residuals in the scaled system recomputed on the host:
+#   python -m relp_tpu_torch.tools.pdhg_check --platform cpu --dtype float64
+PDHG_F64_CPU = dict(iterations=20_000, restarts=8, primal=9.840506043556113e-05,
+                    gap=2.2290309039032867e-06)
 
 
 def pdhg_lp(m: int, n: int, seed: int):

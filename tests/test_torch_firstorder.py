@@ -87,6 +87,23 @@ def test_pdhg_solve_matches_jax(name):
         assert getattr(st, field) <= 1e-9
 
 
+@pytest.mark.parametrize("name", sorted(PDHG_CASES))
+def test_host_kkt_matches_the_ports(name):
+    """tools.pdhg_check.kkt64 (numpy, chip_smoke's host evaluation) against
+    the port's torch _kkt in f64 at an unconverged point (200 iterations)."""
+    from relp_tpu_torch.tools.pdhg_check import kkt64
+
+    A, b, c, u = PDHG_CASES[name]
+    u = np.full(A.shape[1], np.inf) if u is None else u
+    x, y, _st = pdhg.pdhg_solve(A, b, c, u, tol=0.0, max_iters=200,
+                                dtype=np.float64, device="cpu")
+    port = pdhg._kkt(*(torch.as_tensor(v, dtype=torch.float64) for v in (A, b, c, u, x, y)))
+    host = kkt64(A, b, c, u, x, y)
+    assert max(host) > 0.0
+    for h, p in zip(host, port):
+        assert abs(h - p) <= 1e-12 * (1.0 + abs(h))
+
+
 def test_pdhg_f32_converges_to_the_same_point():
     """f32 iterates: both packages converge at tol 1e-4 to the same vertex."""
     A, b, c, u = PDHG_CASES["random_13x37"]

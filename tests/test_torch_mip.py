@@ -177,5 +177,32 @@ def test_knapsack_node_waves_leave_the_batch_alike(monkeypatch):
     jax_res = jax_solve_mip(jax_testing.mknap(**testing.MKNAP), JaxConfig(), **kw)
     port_res = solve_mip(testing.mknap(**testing.MKNAP), SolverConfig(platform="cpu"), **kw)
     assert _verdict(port_res, "float64") == _verdict(jax_res, "float64")
-    assert port_res.best_bound_exact and port_res.objective is None
+    assert port_res.best_bound_exact and port_res.best_bound > port_res.root_objective
     assert fallbacks["port"] == fallbacks["jax"] > port_res.nodes_solved // 2
+
+
+def test_knapsack_node_waves_stay_in_the_batch_in_f64(monkeypatch):
+    """The same instance and budget in f64 (chip_smoke's mip/real64): both
+    packages visit the same nodes to the same exact best bound, and every
+    node LP of every wave is solved inside solve_batch (f64 passes the
+    batch driver's residual gates)."""
+    import relp_tpu_torch.parallel.batch_driver as port_batch
+    import relp_tpu_torch.testing as testing
+
+    jax_testing = twin("relp_tpu_torch.testing", "relp_tpu")
+    kept, lps = port_batch.solve_batch, []
+
+    def counted(*args, **kwargs):
+        results = kept(*args, **kwargs)
+        lps.extend(results)
+        return results
+
+    monkeypatch.setattr(port_batch, "solve_batch", counted)
+    kw = dict(batch_width=8, node_limit=24)
+    jax_res = jax_solve_mip(jax_testing.mknap(**testing.MKNAP),
+                            JaxConfig(dtype="float64"), **kw)
+    port_res = solve_mip(testing.mknap(**testing.MKNAP),
+                         SolverConfig(platform="cpu", dtype="float64"), **kw)
+    assert _verdict(port_res, "float64") == _verdict(jax_res, "float64")
+    assert lps and not any(r.stats.batch_fallback for r in lps)
+    assert port_res.best_bound_exact and port_res.best_bound > port_res.root_objective
