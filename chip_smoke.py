@@ -14,7 +14,8 @@ Takes no arguments and needs no network.  Phases, one line each (or more):
                    the float32 matmul precision (TF32 must be off);
   2. build         nvcc of every relp_tpu_torch/csrc/*.cu, in parallel, into
                    one library (ptxas summary; dynamic shared memory of the
-                   batched-pivot kernels at the families' shapes);
+                   batched-pivot kernels at the families' shapes and of the
+                   probe's two products);
   3. kernel        fused_price_scan against fused_price_scan_reference at
                    several shapes and at the main path's, f32 / f64 / bf16,
                    with CUDA-event times, and torch.matmul(P, A) (TF32 off,
@@ -22,6 +23,11 @@ Takes no arguments and needs no network.  Phases, one line each (or more):
   4. probe         the precision probe (relp_tpu_torch.tools.
                    probe_dot_precision): single-pass TF32 above 1e-6
                    relative error, 3xTF32 and the outer product within it;
+                   each kernel against its plain version on the card at
+                   M = 64, 256, 512 (1e-6 * max|plain|, the outer product
+                   bitwise), two launches bitwise equal; CUDA-graph times
+                   beside the plain version's, the bound, a library call
+                   and the empty kernel's (floor_ms);
   5. batch/kernel  both batched-pivot kernels against
                    batched_pivot_chunk_reference from the same state, one
                    25-pivot chunk with and without stop_at_zero, at the JAX
@@ -101,7 +107,8 @@ batched-pivot kernels and the probe's three) with its time, its plain
 version's, its bound (the larger of its bytes at 3.35 TB/s and its
 operations at the H100's peak for their type), the library yardstick,
 its error on mip/real's inputs and its launches on each of the paths
-13-18, and as the last line {"ok":
+13-18 (the probe's three also floor_ms and repeat_bitwise), and as the
+last line {"ok":
 true, "device": {...}}.  Any failure raises: the exit code is then
 non-zero and no result line is printed.
 """
@@ -166,6 +173,7 @@ def phase_device(torch):
 
 def phase_build():
     from relp_tpu_torch.ops import _build, batch_pivot, price_scan
+    from relp_tpu_torch.tools import probe_dot_precision
 
     t0 = time.perf_counter()
     price_scan.build()
@@ -193,6 +201,9 @@ def phase_build():
             inverse_rows_in_smem=M if resident else batch_pivot.blocked_rows(M, N),
             limit=batch_pivot.SMEM_LIMIT,
         )
+    for kind, split in (("tf32", "false"), ("tf32x3", "true")):
+        _line("build", kernel=f"probe_mma_kernel<{split}>",
+              dynamic_smem_bytes=probe_dot_precision.smem_bytes(kind))
 
 
 def _replay_ms(torch, body, replays: int = 10) -> float:
@@ -331,13 +342,24 @@ def phase_kernel(torch, np, device):
     return main_shape, errors, times
 
 
+PROBE_SIZES = (64, 256, 512)
+
+
 def phase_probe(torch, device):
     """The precision probe's main path (relp_tpu_torch.tools.
-    probe_dot_precision.run) with its launch counts from 0, its checks,
-    then each kernel's time beside its plain version (numpy f64 on the
-    host), its bound and a library call: torch.matmul with TF32 allowed
-    (tf32), torch.matmul in full f32 (tf32x3: the same product, by another
-    method), torch.outer (outer)."""
+    probe_dot_precision.run, M=256) with its launch counts from 0 and its
+    bands against the exact product.  Then, at each of PROBE_SIZES, every
+    kernel against its plain version run on the card
+    (probe_dot_reference): the two products within 1e-6 * max|plain| (the
+    kernel sums the same TF32 terms in f32, the plain version in f64: f32
+    summation order over K <= 512), the outer product bitwise (the same
+    f32 multiplies); and two launches on the same inputs bitwise equal.
+    At M=256 each kernel's time beside its plain version's on the card,
+    its bound, a library call (torch.matmul with TF32 allowed for tf32,
+    torch.matmul in full f32 for tf32x3: the same product by another
+    method, torch.outer for outer) and floor_ms: the empty kernel of the
+    same source, timed the same way, the part of every time that no design
+    of a kernel's body removes."""
     from relp_tpu_torch.tools import probe_dot_precision as probe
 
     for kind in probe.KINDS:
@@ -347,6 +369,23 @@ def phase_probe(torch, device):
     _check(1e-6 < rel["tf32"] < 1e-2, f"probe tf32 error {rel['tf32']:.3e}")
     _check(rel["tf32x3"] <= 1e-6 and rel["outer"] <= 1e-6,
            f"probe errors {rel}")
+    vs_plain, repeat = {}, {kind: True for kind in probe.KINDS}
+    for M in PROBE_SIZES:
+        a, b = probe.inputs(device, M)
+        for kind in probe.KINDS:
+            first, second = probe.probe_dot(kind, a, b), probe.probe_dot(kind, a, b)
+            plain = probe.probe_dot_reference(kind, a, b)
+            torch.cuda.synchronize()
+            err = float((first.double() - plain).abs().max())
+            scale = float(plain.abs().max())
+            bitwise = torch.equal(first, second)
+            tol = 0.0 if kind == "outer" else 1e-6 * scale
+            _check(err <= tol, f"probe {kind} at M={M}: |kernel - plain| {err:.3e} > {tol:.3e}")
+            _check(bitwise, f"probe {kind} at M={M}: two launches differ")
+            vs_plain[kind, M] = err
+            repeat[kind] &= bitwise
+            _line("probe", kind=kind, shape=f"{M}x{M}", vs_plain=f"{err / scale:.3e}",
+                  tol="0" if kind == "outer" else "1e-6*max|plain|", repeat_bitwise=bitwise)
     a, b = probe.inputs(device)
     M = a.shape[0]
     library = {
@@ -359,27 +398,24 @@ def phase_probe(torch, device):
         "tf32x3": _bound(3 * M * M * 4, 6.0 * M ** 3, TF32_FLOPS),
         "outer": _bound((2 * M + M * M) * 4, 1.0 * M * M, F32_FLOPS),
     }
+    floor_ms = _graph_ms(torch, lambda: probe.empty_launch(device))
     out = {}
     for kind in probe.KINDS:
-        exact = probe.probe_dot_reference(kind, a, b)
-        err = float((probe.probe_dot(kind, a, b).double().cpu() - exact).abs().max())
         ms = _graph_ms(torch, lambda: probe.probe_dot(kind, a, b))
-        t0 = time.perf_counter()
-        for _ in range(5):
-            probe.probe_dot_reference(kind, a, b)
-        plain_ms = (time.perf_counter() - t0) / 5 * 1e3
+        plain_ms = _graph_ms(torch, lambda: probe.probe_dot_reference(kind, a, b))
         torch.backends.cuda.matmul.allow_tf32 = kind == "tf32"
         try:
             library_ms = _graph_ms(torch, library[kind])
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
-        out[kind] = dict(launches=launches[kind], max_abs_err=err, ms=ms,
+        out[kind] = dict(launches=launches[kind], max_abs_err=vs_plain[kind, M], ms=ms,
                          plain_ms=plain_ms, bound_ms=bounds[kind][0],
-                         bound_by=bounds[kind][1], library_ms=library_ms)
+                         bound_by=bounds[kind][1], library_ms=library_ms,
+                         floor_ms=floor_ms, repeat_bitwise=repeat[kind])
         _line("probe", kind=kind, shape=f"{M}x{M}", rel_err=f"{rel[kind]:.3e}",
-              launches=launches[kind], kernel_ms=f"{ms:.5f}",
-              plain_host_ms=f"{plain_ms:.4f}", library_ms=f"{library_ms:.5f}",
-              bound_ms=f"{bounds[kind][0]:.5f}", bound_by=bounds[kind][1])
+              launches=launches[kind], kernel_ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+              library_ms=f"{library_ms:.5f}", bound_ms=f"{bounds[kind][0]:.5f}",
+              bound_by=bounds[kind][1], floor_ms=f"{floor_ms:.5f}")
     return out
 
 

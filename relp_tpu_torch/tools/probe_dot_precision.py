@@ -8,7 +8,7 @@ On Hopper the same question is about TF32: three hand-written kernels of
 ``csrc/probe_dot.cu`` compute one 256 x 256 f32 product of standard normal
 matrices (seed 0) as
 
-* ``tf32``: a single-pass TF32 product on the tensor cores (``mma.sync``),
+* ``tf32``: a single-pass TF32 product on the tensor cores (``wgmma``),
   the counterpart of the default-precision dot;
 * ``tf32x3``: three TF32 products of the split inputs, the counterpart of
   ``Precision.HIGHEST``;
@@ -16,8 +16,13 @@ matrices (seed 0) as
   plain f32 multiplies,
 
 and the probe prints each one's largest error relative to the largest
-entry of the product taken in f64 with numpy (the plain version).  On the
-CPU the kernels' plain version stands in for them.
+entry of the exact product (``exact_product``: f64 with numpy on the
+host).  ``probe_dot_reference`` is the kernels' plain version: plain torch
+on the inputs' own device computing what each kernel computes (TF32
+rounding included), so the kernels are held to it up to f32 summation
+order.  On the CPU the plain version stands in for the kernels, so
+``--platform cpu`` prints the TF32 rounding's error too (about 3e-4).
+The matrices are square, (M, M) with M a positive multiple of 64.
 
     python -m relp_tpu_torch.tools.probe_dot_precision [--platform cpu]
 """
@@ -34,6 +39,9 @@ import torch
 from relp_tpu_torch.ops import _build
 
 KINDS = ("tf32", "tf32x3", "outer")
+# The kernels take (M, M) matrices with M a positive multiple of this: one
+# 64 x 64 output tile per warpgroup, K read in 64-wide slices.
+TILE = 64
 # Launches of each kernel since the last reset; the plain version does not
 # count.
 LAUNCHES: Dict[str, int] = {kind: 0 for kind in KINDS}
@@ -44,49 +52,107 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.build()
-        lib.relp_probe_dot.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        lib.relp_probe_dot_split.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         )
-        lib.relp_probe_dot.restype = ctypes.c_int
+        lib.relp_probe_dot_split.restype = ctypes.c_int
+        lib.relp_probe_empty.argtypes = [ctypes.c_void_p]
+        lib.relp_probe_empty.restype = ctypes.c_int
+        lib.relp_probe_smem_bytes.argtypes = [ctypes.c_int]
+        lib.relp_probe_smem_bytes.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on a finite f32 tensor: round to nearest, ties
+    away from zero, keeping 10 mantissa bits (the low 13 bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor):
+    """(hi, lo) of the 3xTF32 product: hi = round_tf32(x), lo =
+    round_tf32(x - hi) with the subtraction in f32."""
+    hi = round_tf32(x)
+    return hi, round_tf32(x - hi)
+
+
 def probe_dot_reference(kind: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The plain version: the product in f64 with numpy (CPU tensor)."""
+    """The plain version, on the inputs' device, as an f64 matrix: what the
+    ``kind`` kernel computes, summed exactly (f64) where the kernel sums in
+    f32.  ``tf32``: round_tf32(a) @ round_tf32(b); ``tf32x3``: lo_a hi_b +
+    hi_a lo_b + hi_a hi_b of the split inputs (lo lo dropped, as the kernel
+    drops it); ``outer``: the f32 products a[i, 0] * b[0, j], bit for bit."""
+    if kind == "outer":
+        return (a[:, :1] * b[:1, :]).double()
+    if kind == "tf32":
+        return round_tf32(a).double() @ round_tf32(b).double()
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
+    a_hi, a_lo, b_hi, b_lo = (t.double() for t in (a_hi, a_lo, b_hi, b_lo))
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def exact_product(kind: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The exact product of the f32 inputs, in f64 with numpy (a CPU
+    tensor): the yardstick of each kind's error."""
     a64 = a.detach().cpu().numpy().astype(np.float64)
     b64 = b.detach().cpu().numpy().astype(np.float64)
     out = np.outer(a64[:, 0], b64[0, :]) if kind == "outer" else a64 @ b64
     return torch.from_numpy(out)
 
 
-def probe_dot(kind: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The ``kind`` product of two (M, M) f32 matrices, M % 16 == 0, as an
-    f32 matrix: the kernel on CUDA tensors, the plain version rounded to
-    f32 on CPU tensors."""
+def _check(kind: str, a: torch.Tensor, b: torch.Tensor) -> int:
     if kind not in KINDS:
         raise ValueError(f"probe_dot: kind {kind!r} is not one of {KINDS}")
-    M = a.shape[0]
+    M = a.shape[0] if a.dim() else 0
     for name, t in (("a", a), ("b", b)):
         if t.dtype != torch.float32 or tuple(t.shape) != (M, M) or t.device != a.device:
             raise ValueError(f"probe_dot: {name} must be ({M}, {M}) float32 on {a.device}")
         if not t.is_contiguous():
             raise ValueError(f"probe_dot: {name} is not contiguous")
-    if M < 16 or M % 16:
-        raise ValueError(f"probe_dot: M={M} is not a positive multiple of 16")
+        if t.device.type == "cuda" and t.data_ptr() % 16:
+            raise ValueError(f"probe_dot: {name} is not 16-byte aligned")
+    if M < TILE or M % TILE:
+        raise ValueError(f"probe_dot: M={M} is not a positive multiple of {TILE}")
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"probe_dot: unsupported device {a.device}")
+    return M
+
+
+def probe_dot(kind: str, a: torch.Tensor, b: torch.Tensor, split: int = 0) -> torch.Tensor:
+    """The ``kind`` product of two (M, M) f32 matrices, M a positive
+    multiple of 64, as an f32 matrix: the kernel on CUDA tensors, the
+    plain version rounded to f32 on CPU tensors.  ``split`` (CUDA only,
+    for timing another tiling) is the number of K-slices of each output
+    tile, one CTA each in a cluster (1, 2 or 4; 0: the kernel's default,
+    the largest that divides M / 64)."""
+    M = _check(kind, a, b)
     if a.device.type == "cpu":
         return probe_dot_reference(kind, a, b).to(torch.float32)
-    if a.device.type != "cuda":
-        raise ValueError(f"probe_dot: unsupported device {a.device}")
     out = torch.empty_like(a)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = _lib().relp_probe_dot(KINDS.index(kind), a.data_ptr(), b.data_ptr(),
-                                   out.data_ptr(), M, stream)
+        rc = _lib().relp_probe_dot_split(KINDS.index(kind), a.data_ptr(), b.data_ptr(),
+                                         out.data_ptr(), M, split, stream)
     if rc != 0:
         raise RuntimeError(f"probe_dot: CUDA launch failed (error {rc})")
     LAUNCHES[kind] += 1
     return out
+
+
+def empty_launch(device) -> None:
+    """One launch of the empty kernel of ``csrc/probe_dot.cu`` (one block):
+    the floor under any kernel's time on the card.  Not counted."""
+    with torch.cuda.device(device):
+        rc = _lib().relp_probe_empty(torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"probe_dot: empty kernel launch failed (error {rc})")
+
+
+def smem_bytes(kind: str) -> int:
+    """Dynamic shared memory per CTA of the ``tf32`` or ``tf32x3`` kernel."""
+    return _lib().relp_probe_smem_bytes(KINDS.index(kind))
 
 
 def inputs(device, M: int = 256, seed: int = 0):
@@ -99,14 +165,15 @@ def inputs(device, M: int = 256, seed: int = 0):
 
 def relative_error(out: torch.Tensor, exact: torch.Tensor) -> float:
     """Largest error relative to the largest entry of the exact product."""
-    diff = out.detach().cpu().double() - exact
+    diff = out.detach().cpu().double() - exact.cpu()
     return float(diff.abs().max() / exact.abs().max())
 
 
 def run(device, M: int = 256, seed: int = 0) -> Dict[str, float]:
-    """Each kind's relative error on the probe's inputs."""
+    """Each kind's relative error against the exact product on the probe's
+    inputs."""
     a, b = inputs(device, M, seed)
-    return {kind: relative_error(probe_dot(kind, a, b), probe_dot_reference(kind, a, b))
+    return {kind: relative_error(probe_dot(kind, a, b), exact_product(kind, a, b))
             for kind in KINDS}
 
 

@@ -15,7 +15,9 @@ to 1 + max|plain|; two launches give the same bits), give the same bits on
 one tableau expanded over the batch as on B copies of it; their shared
 memory is the wrapper's formula; and solve_batch on CUDA must reach the
 CPU's verdicts and exact objectives through them.  The precision probe's
-kernels keep TF32 above 1e-6 relative error and the others below it.
+kernels keep TF32 above 1e-6 relative error and the others below it, and
+agree with their plain version on the card (1e-6 * max|plain|, the outer
+product bitwise, two launches bitwise equal).
 The three other solve modes (``--mip``, ``--first-order``, ``--basis-inverse
 lu``) give the CPU's payload on knap6, and PDHG on CUDA walks the CPU's
 iterations.
@@ -313,3 +315,24 @@ def test_probe_kernels_precision(cuda_device):
     assert 1e-6 < err["tf32"] < 1e-2
     assert err["tf32x3"] <= 1e-6 and err["outer"] <= 1e-6
     assert all(probe.LAUNCHES[k] == before[k] + 1 for k in probe.KINDS)
+
+
+@pytest.mark.parametrize("M", [64, 256, 512])
+@pytest.mark.parametrize("kind", ["tf32", "tf32x3", "outer"])
+def test_probe_kernel_matches_plain(cuda_device, kind, M):
+    """Each probe kernel against its plain version on the card: the two
+    products within 1e-6 * max|plain| (the same TF32 terms, summed in f32
+    by the kernel and in f64 by the plain version), the outer product
+    bitwise; two launches give the same bits and count one each."""
+    from relp_tpu_torch.tools import probe_dot_precision as probe
+
+    a, b = probe.inputs(cuda_device, M, seed=3)
+    before = probe.LAUNCHES[kind]
+    first, second = probe.probe_dot(kind, a, b), probe.probe_dot(kind, a, b)
+    torch.cuda.synchronize()
+    assert probe.LAUNCHES[kind] == before + 2
+    assert torch.equal(first, second)
+    plain = probe.probe_dot_reference(kind, a, b)
+    assert plain.device == a.device
+    err = float((first.double() - plain).abs().max())
+    assert err <= (0.0 if kind == "outer" else 1e-6 * float(plain.abs().max()))
