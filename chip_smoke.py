@@ -101,13 +101,33 @@ just before it (a `launches` line after each):
                    main/real's LP on the LU engine: certified, the pinned
                    digest, ms per pivot; one chunk of it replayed under the
                    profiler for launches and device-busy time per pivot.
+ 19. df32/real, df32/profile, df32/kernel
+                   main/real's LP with the double-float carry
+                   (carry="df32"): certified by that rung, the pinned
+                   digest, scan launches, ms per pivot, the certification
+                   share; one chunk replayed under the profiler; then the
+                   scan kernel against its plain version on this path's
+                   inputs, and df_matvec/df_vecmat on the card against the
+                   CPU on the same f32 inputs, bitwise, at M = 1920.
+ 20. mesh/world1, mesh/chunk, mesh/kernel
+                   the mesh as a world of one over NCCL
+                   (initialize_multihost(), make_mesh((1, 1))): main/real
+                   through solve_relaxation(mesh=...) with main/real's
+                   basis, pivots and digest; the resident family through
+                   solve_batch(mesh=...) on the batched torch path, its
+                   digest; first_order/pdhg's LP through pdhg_solve(mesh=...)
+                   held to the unsharded run; collectives and ms per pivot
+                   of the sharded chunk loop beside the unsharded one; the
+                   scan kernel against its plain version on this path's
+                   inputs.  One card shows the code, not a scale-out.
 
 Then a JSON line describing each kernel (six: the scan, the two
 batched-pivot kernels and the probe's three) with its time, its plain
 version's, its bound (the larger of its bytes at 3.35 TB/s and its
 operations at the H100's peak for their type), the library yardstick,
-its error on mip/real's inputs and its launches on each of the paths
-13-18 (the probe's three also floor_ms and repeat_bitwise), and as the
+its error on mip/real's inputs (the scan's also on df32/real's and
+mesh/world1's) and its launches on each of the paths 13-20 (the probe's
+three also floor_ms and repeat_bitwise), and as the
 last line {"ok":
 true, "device": {...}}.  Any failure raises: the exit code is then
 non-zero and no result line is printed.
@@ -512,11 +532,13 @@ def phase_main_real(torch, np):
         objective=f"{objective:.12f}", digest_ok=True, highs_rel_diff=f"{rel:.2e}",
         price_scan_launches=price_scan.LAUNCHES,
     )
+    return result
 
 
-def phase_chunk_loop(torch, np, device, times):
-    from relp_tpu_torch.ops import price_scan
-    from relp_tpu_torch.simplex import kernels
+def _bench_chunk_inputs(torch, np, device):
+    """(state0, A, c, mask) of the chunk loop's bench problem on the card:
+    testing.synthetic_problem(m=1024, n=4096, pad=128, seed=7), f32,
+    phase-1 costs, the slack/artificial start."""
     from relp_tpu_torch.simplex.state import RUNNING, state_from_numpy
     from relp_tpu_torch.testing import synthetic_problem
 
@@ -538,9 +560,41 @@ def phase_chunk_loop(torch, np, device, times):
         ),
         device,
     )
-    A_d = torch.as_tensor(A, device=device)
-    c_d = torch.as_tensor(c1, device=device)
-    cand_d = torch.as_tensor(cand, device=device)
+    return (state0, torch.as_tensor(A, device=device),
+            torch.as_tensor(c1, device=device), torch.as_tensor(cand, device=device))
+
+
+def _marginal_ms_per_pivot(torch, np, runs, reps: int = 8):
+    """{path: (median, q1, q3 ms per pivot, pivots of the long run)}:
+    ``runs[path](chunk)`` returns
+    (seconds, pivots) with a host read of the pivot count inside the timed
+    region; the (300 - 10)-pivot difference, paths interleaved, after one
+    warm-up of each."""
+    chunks = (10, 300)
+    for run in runs.values():
+        for chunk in chunks:
+            run(chunk)
+    estimates = {path: [] for path in runs}
+    pivots = {}
+    for rep_i in range(reps):
+        order = list(runs) if rep_i % 2 == 0 else list(runs)[::-1]
+        for path in order:
+            t_small, i_small = runs[path](chunks[0])
+            t_big, i_big = runs[path](chunks[1])
+            pivots[path] = (i_small, i_big)
+            _check(i_big > i_small, f"{path}: no pivots {i_small} {i_big}")
+            estimates[path].append((t_big - t_small) / (i_big - i_small))
+    return {p: (float(np.median(v)) * 1e3,
+                *(float(q) * 1e3 for q in np.percentile(v, [25, 75])), pivots[p][1])
+            for p, v in estimates.items()}
+
+
+def phase_chunk_loop(torch, np, device, times):
+    from relp_tpu_torch.ops import price_scan
+    from relp_tpu_torch.simplex import kernels
+
+    state0, A_d, c_d, cand_d = _bench_chunk_inputs(torch, np, device)
+    M, N = A_d.shape
 
     def run(chunk):
         torch.cuda.synchronize()
@@ -563,37 +617,25 @@ def phase_chunk_loop(torch, np, device, times):
         finally:
             kernels.fused_price_scan = kept
 
-    chunks = (10, 300)
-    for path in ("kernel", "plain"):  # warm up outside the timed region
-        with scan(path):
-            for chunk in chunks:
-                run(chunk)
-    estimates = {"kernel": [], "plain": []}
-    pivots = {}
-    for rep in range(8):
-        order = ("kernel", "plain") if rep % 2 == 0 else ("plain", "kernel")
-        for path in order:
+    def with_scan(path):
+        def timed(chunk):
             with scan(path):
-                t_small, i_small = run(chunks[0])
-                t_big, i_big = run(chunks[1])
-            pivots[path] = (i_small, i_big)
-            _check(i_big > i_small, f"{path}: no pivots {i_small} {i_big}")
-            estimates[path].append((t_big - t_small) / (i_big - i_small))
-    per_pivot = {p: float(np.median(v)) for p, v in estimates.items()}
-    quartiles = {
-        p: "/".join(f"{q * 1e3:.4f}" for q in np.percentile(v, [25, 75]))
-        for p, v in estimates.items()
-    }
+                return run(chunk)
+        return timed
+
+    per_pivot = _marginal_ms_per_pivot(
+        torch, np, {path: with_scan(path) for path in ("kernel", "plain")})
     kern_ms, plain_ms = times[(1024, 5120, torch.float32)][:2]
     busy_ms, launches, top = _device_busy(torch, lambda: run(60), 60)
-    idle = 1.0 - busy_ms / (per_pivot["kernel"] * 1e3) if busy_ms else None
+    idle = 1.0 - busy_ms / per_pivot["kernel"][0] if busy_ms else None
     _line(
         "chunk", shape=f"{M}x{N}", dtype="float32", pricing="steepest",
         method="median of 8 interleaved (300-10)-pivot differences",
-        pivots=pivots["kernel"][1],
-        kernel_path_ms_per_pivot=f"{per_pivot['kernel'] * 1e3:.4f}",
-        plain_path_ms_per_pivot=f"{per_pivot['plain'] * 1e3:.4f}",
-        kernel_path_q1_q3=quartiles["kernel"], plain_path_q1_q3=quartiles["plain"],
+        pivots=per_pivot["kernel"][3],
+        kernel_path_ms_per_pivot=f"{per_pivot['kernel'][0]:.4f}",
+        plain_path_ms_per_pivot=f"{per_pivot['plain'][0]:.4f}",
+        kernel_path_q1_q3="/".join(f"{q:.4f}" for q in per_pivot["kernel"][1:3]),
+        plain_path_q1_q3="/".join(f"{q:.4f}" for q in per_pivot["plain"][1:3]),
         scan_kernel_ms=f"{kern_ms:.5f}", scan_plain_ms=f"{plain_ms:.5f}",
     )
     _line(
@@ -1625,6 +1667,9 @@ def phase_first_order_pdhg(torch, np, device):
         f64_cpu_primal=f"{PDHG_F64_CPU['primal']:.4e}",
         primal_bound=f"{progress:.4e}",
     )
+    A, _b, c, _u = pdhg_check.pdhg_lp(**pdhg_check.PDHG_SIZE)
+    return {"iterations": st.iterations, "objective": float(c @ x), "primal": host[0],
+            "ms_per_iteration": st.wall_time_s / st.iterations * 1e3}
 
 
 def phase_lu_real(torch):
@@ -1689,12 +1734,329 @@ def phase_lu_real(torch):
         top_kernels=";".join(f"{name}:{ms:.4f}ms" for name, ms in top),
     )
 
+# The chunk of df32/real replayed under the profiler (lu/real's is the 20th).
+_PROFILED_CHUNK = 20
 
-def phase_other_modes(torch, np, device, knap6_pivots):
+
+def _hold_df_bitwise(torch, np, label, state, A):
+    """df_matvec (FTRAN: the df inverse times a df column of A) and
+    df_vecmat (pi times the df inverse) on the card against the same calls
+    on the CPU on the same f32 inputs: bitwise equal, hi and lo."""
+    from relp_tpu_torch.ops import df32
+
+    M = state.Binv.shape[0]
+    j = int((A.hi != 0).sum(dim=0).argmax())  # the densest column
+    calls = {
+        "df_matvec": lambda t: df32.df_matvec(t["Bh"], t["Bl"], t["ah"], t["al"]),
+        "df_vecmat": lambda t: df32.df_vecmat(t["ph"], t["pl"], t["Bh"], t["Bl"]),
+    }
+    card = dict(Bh=state.Binv, Bl=state.Binv_lo, ah=A.hi[:, j].contiguous(),
+                al=A.lo[:, j].contiguous(), ph=state.pi, pl=state.pi_lo)
+    host = {k: v.cpu() for k, v in card.items()}
+    for name, call in calls.items():
+        on_card, on_host = call(card), call(host)
+        torch.cuda.synchronize()
+        for part, c, h in zip(("hi", "lo"), on_card, on_host):
+            c, h = c.cpu().numpy(), h.numpy()
+            _check(np.array_equal(c.view(np.uint32), h.view(np.uint32)),
+                   f"{label}: {name} {part} differs from the CPU's at M={M}")
+        _line(label, call=name, M=M, column=j, card_vs_cpu="bitwise",
+              max_abs=f"{float(np.abs(on_host[0].numpy()).max()):.3e}")
+
+
+def phase_df32_real(torch, np):
+    """main/real's LP through solve_general_form with the double-float
+    carry (carry="df32"): certified by that rung (no escalation), main/
+    real's pinned digest; pivots, chunk exits, scan launches, ms per pivot
+    of the solve, the certification share; one chunk of it replayed under
+    the profiler for launches and device-busy time per pivot.  Returns the
+    checks that launch kernels (run once the path's launches are read):
+    the scan kernel against its plain version on the inputs this path gave
+    it, and df_matvec/df_vecmat on the card against the CPU, bitwise, at
+    the path's M."""
+    from relp_tpu_torch.config import SolverConfig
+    from relp_tpu_torch.ops import price_scan
+    from relp_tpu_torch.simplex import SolveStatus, df_kernels, engine, solve_general_form
+    from relp_tpu_torch.testing import (
+        REAL_SIZE,
+        REAL_SIZE_OBJECTIVE_SHA256,
+        generated_lp,
+    )
+
+    kept, calls = {}, []
+
+    def profiled(*_args):  # keep this chunk's inputs for the replay
+        calls.append(1)
+        return len(calls) == _PROFILED_CHUNK
+
+    with _keeping_inputs(engine.DoubleFloatEngine, "run_chunk", kept, when=profiled), \
+            _keeping_inputs(df_kernels, "fused_price_scan", kept):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result, solution = solve_general_form(generated_lp(**REAL_SIZE),
+                                              SolverConfig(carry="df32"))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    scan_launches = price_scan.LAUNCHES
+    _check(result.status is SolveStatus.FINITE_OPTIMUM and result.stats.certified,
+           f"df32/real: {result.status} certified={result.stats.certified}")
+    _check(not result.stats.escalations,
+           f"df32/real escalated to {result.stats.escalations}")
+    digest = hashlib.sha256(str(solution.objective_value).encode()).hexdigest()
+    _check(digest == REAL_SIZE_OBJECTIVE_SHA256, f"df32/real digest {digest}")
+    _check(scan_launches > 0, "df32/real never launched the scan kernel")
+    _check("run_chunk" in kept,
+           f"df32/real: {len(calls)} chunks, fewer than {_PROFILED_CHUNK}")
+    pivots = result.stats.iterations
+    solve_s = result.stats.wall_time_s - result.stats.certify_time_s
+    (self, state, *args), kwargs = kept["run_chunk"]
+    run_chunk = engine.DoubleFloatEngine.run_chunk
+    out = run_chunk(self, state, *args, **kwargs)
+    chunk_pivots = int(out.iteration) - int(state.iteration)
+    _check(chunk_pivots > 0, "df32/real: the replayed chunk took no pivot")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    int(run_chunk(self, state, *args, **kwargs).iteration)
+    chunk_ms = (time.perf_counter() - t1) * 1e3
+    busy_ms, launches, top = _device_busy(
+        torch, lambda: int(run_chunk(self, state, *args, **kwargs).iteration),
+        chunk_pivots)
+    idle = 1.0 - busy_ms * chunk_pivots / chunk_ms if busy_ms else None
+    _line(
+        "df32/real", m=REAL_SIZE["m"], n=REAL_SIZE["n"], carry="df32",
+        status=result.status.value, certified=True, digest_ok=True,
+        escalations="none", pivots=pivots,
+        phase1_pivots=result.stats.phase1_iterations,
+        refactorizations=result.stats.refactorizations, chunks=result.stats.chunks,
+        scan_launches=scan_launches, wall_s=f"{wall:.3f}", solve_s=f"{solve_s:.3f}",
+        certify_s=f"{result.stats.certify_time_s:.3f}",
+        certify_share=f"{result.stats.certify_time_s / wall:.3f}",
+        solve_ms_per_pivot=f"{solve_s / pivots * 1e3:.4f}",
+    )
+    _line(
+        "df32/profile", chunk=_PROFILED_CHUNK, chunk_pivots=chunk_pivots,
+        chunk_ms_per_pivot=f"{chunk_ms / chunk_pivots:.4f}",
+        device_busy_ms_per_pivot=f"{busy_ms:.4f}" if busy_ms else "not measured",
+        device_idle_share=f"{idle:.3f}" if idle is not None else "not measured",
+        kernel_launches_per_pivot=f"{launches / chunk_pivots:.1f}",
+        top_kernels=";".join(f"{name}:{ms:.4f}ms" for name, ms in top),
+    )
+    A_full = args[1]  # run_chunk(state, A_scan, A_full, c, mask, ...)
+
+    def holds():
+        scan_args, _kw = kept["fused_price_scan"]
+        err, errs = _hold_scan(torch, "df32/real", 1e-5, *scan_args)
+        _line("df32/kernel", kernel="fused_price_scan",
+              shape="x".join(map(str, scan_args[1].shape)), rel_err=errs,
+              tol="1e-05*(1+scale)")
+        _hold_df_bitwise(torch, np, "df32/kernel", state, A_full)
+        return err
+
+    return holds
+
+
+def phase_mesh_world1(torch, np, device, main_result, pdhg_ref):
+    """The mesh (relp_tpu_torch.parallel) as a world of one over NCCL: one
+    card shows the sharded code and its collectives, not a scale-out.
+    initialize_multihost() with no torchrun environment, make_mesh((1, 1));
+    main/real through solve_relaxation(mesh=...): main/real's basis, pivots
+    and digest; the resident family through solve_batch(mesh=...), which
+    takes the batched torch path: every LP certified, the family's digest;
+    first_order/pdhg's LP through pdhg_solve(mesh=...): the iterations of
+    its unsharded run and its progress bound, the objective within 1e-3;
+    collectives and ms per pivot of the sharded chunk loop beside the
+    unsharded one at the chunk loop's problem.  The process group is
+    destroyed at the end.  Returns the scan kernel's check on the inputs
+    this path gave it."""
+    import torch.distributed as dist
+
+    from relp_tpu_torch.config import SolverConfig
+    from relp_tpu_torch.firstorder import pdhg
+    from relp_tpu_torch.ops import batch_pivot
+    from relp_tpu_torch.parallel import (
+        column_shard,
+        initialize_multihost,
+        make_mesh,
+        shard_state,
+        sharded,
+        sharded_run_chunk,
+        solve_batch,
+    )
+    from relp_tpu_torch.simplex import SolveStatus, kernels, solve_relaxation
+    from relp_tpu_torch.testing import (
+        FAMILIES,
+        FAMILY_OBJECTIVES_SHA256,
+        PDHG_F64_CPU,
+        PDHG_SIZE,
+        REAL_SIZE,
+        REAL_SIZE_OBJECTIVE_SHA256,
+        generated_lp,
+        objectives_digest,
+        pdhg_lp,
+        scenario_family,
+    )
+    from relp_tpu_torch.tools import pdhg_check
+
+    initialize_multihost()
+    kept = {}
+    try:
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+        _check(dist.get_backend() == backend and dist.get_world_size() == 1,
+               f"mesh/world1: {dist.get_backend()} world {dist.get_world_size()}")
+        mesh = make_mesh((1, 1))
+
+        # main/real, column-sharded over a "col" axis of one rank.
+        gf = generated_lp(**REAL_SIZE)
+        gf.presolve()
+        md = gf.derive_matrix_data(gf.standardize())
+        sharded.COLLECTIVES = 0
+        with _keeping_inputs(kernels, "fused_price_scan", kept):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = solve_relaxation(md, SolverConfig(), mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        collectives = sharded.COLLECTIVES
+        _check(result.status is SolveStatus.FINITE_OPTIMUM and result.stats.certified,
+               f"mesh/world1 main/real: {result.status}")
+        digest = hashlib.sha256(
+            str(_reconstructed_objective(gf, md, result)).encode()).hexdigest()
+        _check(digest == REAL_SIZE_OBJECTIVE_SHA256, f"mesh/world1 digest {digest}")
+        _check(result.basis == main_result.basis, "mesh/world1: another basis than main/real")
+        pivots = result.stats.iterations
+        _check(pivots == main_result.stats.iterations,
+               f"mesh/world1: {pivots} pivots, main/real {main_result.stats.iterations}")
+        solve_s = result.stats.wall_time_s - result.stats.certify_time_s
+        _line(
+            "mesh/world1", problem="main/real", backend=backend, mesh="1x1",
+            status=result.status.value, certified=True, digest_ok=True,
+            same_basis=True, pivots=pivots, main_real_pivots=main_result.stats.iterations,
+            chunks=result.stats.chunks, collectives=collectives,
+            collectives_per_pivot=f"{collectives / pivots:.3f}",
+            wall_s=f"{wall:.3f}", solve_s=f"{solve_s:.3f}",
+            certify_s=f"{result.stats.certify_time_s:.3f}",
+            certify_share=f"{result.stats.certify_time_s / wall:.3f}",
+            solve_ms_per_pivot=f"{solve_s / pivots * 1e3:.4f}",
+        )
+
+        # The resident family: the batch sharded over "batch" and "col".
+        fam = FAMILIES["resident"]
+        before = batch_pivot.LAUNCHES_RESIDENT + batch_pivot.LAUNCHES_BLOCKED
+        sharded.COLLECTIVES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = solve_batch(scenario_family(**fam), _batch_config(), certify=True,
+                              shared_structure=True, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bad = [k for k, r in enumerate(results)
+               if r.status is not SolveStatus.FINITE_OPTIMUM or not r.stats.certified]
+        _check(not bad, f"mesh/world1 resident family: not certified {bad[:10]}")
+        digest = objectives_digest(r.exact_objective for r in results)
+        _check(digest == FAMILY_OBJECTIVES_SHA256["resident"],
+               f"mesh/world1 resident family digest {digest}")
+        launched = batch_pivot.LAUNCHES_RESIDENT + batch_pivot.LAUNCHES_BLOCKED - before
+        _check(launched == 0, "mesh/world1: a batched-pivot kernel ran under a mesh")
+        _line(
+            "mesh/world1", problem="batch/resident", scenarios=len(results),
+            path="batched torch", certified=len(results), digest_ok=True,
+            fallbacks=sum(bool(r.stats.batch_fallback) for r in results),
+            pivots=sum(r.stats.iterations for r in results),
+            collectives=sharded.COLLECTIVES, wall_s=f"{wall:.3f}",
+            certify_s=f"{sum(r.stats.certify_time_s for r in results):.3f}",
+        )
+
+        # first_order/pdhg's LP, rows over "batch" and columns over "col".
+        A, b, c, u = pdhg_lp(**PDHG_SIZE)
+        sharded.COLLECTIVES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, y, st = pdhg.pdhg_solve(A, b, c, u, tol=1e-6, max_iters=pdhg_check.MAX_ITERS,
+                                   dtype=np.float32, device=device, mesh=mesh)
+        wall = time.perf_counter() - t0
+        As, bs, cs, us, d_row, d_col = pdhg.scale_problem(A, b, c, u, np.float32)
+        host = pdhg_check.kkt64(As, bs, cs, us, x / d_col, y / d_row)
+        objective = float(c @ x)
+        progress = _PDHG_PROGRESS_FACTOR * PDHG_F64_CPU["primal"]
+        rel = abs(objective - pdhg_ref["objective"]) / (1.0 + abs(pdhg_ref["objective"]))
+        _check(st.iterations == pdhg_ref["iterations"] and host[0] <= progress
+               and rel <= 1e-3,
+               f"mesh/world1 pdhg: {st.iterations} iterations (unsharded "
+               f"{pdhg_ref['iterations']}), primal {host[0]:.3e} (bound "
+               f"{progress:.3e}), objective rel diff {rel:.2e}")
+        _line(
+            "mesh/world1", problem="first_order/pdhg", m=A.shape[0], n=A.shape[1],
+            iterations=st.iterations, restarts=st.restarts, converged=st.converged,
+            collectives=sharded.COLLECTIVES,
+            collectives_per_iteration=f"{sharded.COLLECTIVES / st.iterations:.3f}",
+            wall_s=f"{wall:.3f}", ms_per_iteration=f"{st.wall_time_s / st.iterations * 1e3:.4f}",
+            unsharded_ms_per_iteration=f"{pdhg_ref['ms_per_iteration']:.4f}",
+            primal_host_f64=f"{host[0]:.4e}", unsharded_primal=f"{pdhg_ref['primal']:.4e}",
+            objective_rel_diff=f"{rel:.2e}",
+        )
+
+        # The chunk loop at its bench problem, sharded against unsharded.
+        state0, A_d, c_d, cand_d = _bench_chunk_inputs(torch, np, device)
+        shard = column_shard(mesh, A_d.shape[1], device)
+        A_s, c_s, cand_s = shard.take(A_d), shard.take(c_d), shard.take(cand_d)
+        state_s = shard_state(mesh, state0, A_d.shape[1])
+        kw = dict(pricing=kernels.PRICE_STEEPEST, opt_tol=1e-7, pivot_tol=1e-7,
+                  degen_tol=1e-7)
+
+        def timed(fn):
+            def run(chunk):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                pivots = int(fn(chunk).iteration)  # the sync inside the region
+                return time.perf_counter() - t, pivots
+            return run
+
+        runs = {
+            "unsharded": timed(lambda ch: kernels.run_chunk(
+                state0, A_d, A_d, c_d, cand_d, chunk=ch, **kw)),
+            "sharded": timed(lambda ch: sharded_run_chunk(
+                shard, state_s, A_s, A_s, c_s, cand_s, chunk=ch, **kw)),
+        }
+        per_pivot = _marginal_ms_per_pivot(torch, np, runs, reps=4)
+        sharded.COLLECTIVES = 0
+        _t, chunk_pivots = runs["sharded"](60)
+        per_chunk = sharded.COLLECTIVES
+        busy_ms, launches, _top = _device_busy(torch, lambda: runs["sharded"](60), chunk_pivots)
+        idle = 1.0 - busy_ms / per_pivot["sharded"][0] if busy_ms else None
+        _line(
+            "mesh/chunk", shape="x".join(map(str, A_d.shape)), pricing="steepest",
+            method="median of 4 interleaved (300-10)-pivot differences",
+            sharded_ms_per_pivot=f"{per_pivot['sharded'][0]:.4f}",
+            unsharded_ms_per_pivot=f"{per_pivot['unsharded'][0]:.4f}",
+            sharded_q1_q3="/".join(f"{q:.4f}" for q in per_pivot["sharded"][1:3]),
+            unsharded_q1_q3="/".join(f"{q:.4f}" for q in per_pivot["unsharded"][1:3]),
+            collectives_per_pivot=f"{per_chunk / chunk_pivots:.3f}",
+            sharded_launches_per_pivot=f"{launches / chunk_pivots:.1f}",
+            sharded_device_busy_ms_per_pivot=(f"{busy_ms:.4f}" if busy_ms
+                                              else "not measured"),
+            sharded_device_idle_share=f"{idle:.3f}" if idle is not None else "not measured",
+        )
+    finally:
+        dist.destroy_process_group()
+    _check("fused_price_scan" in kept, "mesh/world1 never called the scan")
+
+    def holds():
+        scan_args, _kw = kept["fused_price_scan"]
+        err, errs = _hold_scan(torch, "mesh/world1", 1e-5, *scan_args)
+        _line("mesh/kernel", kernel="fused_price_scan",
+              shape="x".join(map(str, scan_args[1].shape)), rel_err=errs,
+              tol="1e-05*(1+scale)")
+        return err
+
+    return holds
+
+
+def phase_other_modes(torch, np, device, knap6_pivots, main_result):
     """The other solve modes, each path's launch counts from 0 just before
-    it and read just after it; then mip/real's kernels against their plain
-    versions on the inputs that path gave them (launches not counted).
-    Returns ({path: launches by kernel}, {kernel: mip/real's error})."""
+    it and read just after it; then each kernel against its plain version
+    on the inputs a path gave it (launches not counted): mip/real's, and
+    the scan's on df32/real and mesh/world1.  Returns ({path: launches by
+    kernel}, {kernel: mip/real's error}, {path: the scan's error})."""
     by_path, replays = {}, {}
     for path, run in (
         ("mip/small", lambda: phase_mip_small(knap6_pivots)),
@@ -1703,15 +2065,19 @@ def phase_other_modes(torch, np, device, knap6_pivots):
         ("first_order/real", lambda: phase_first_order_real(torch)),
         ("first_order/pdhg", lambda: phase_first_order_pdhg(torch, np, device)),
         ("lu/real", lambda: phase_lu_real(torch)),
+        ("df32/real", lambda: phase_df32_real(torch, np)),
+        ("mesh/world1", lambda: phase_mesh_world1(
+            torch, np, device, main_result, replays["first_order/pdhg"])),
     ):
         _zero_launch_counts()
         replays[path] = run()
         by_path[path] = _launch_counts()
         _line("launches", path=path, **by_path[path])
-    for path in ("mip/small", "mip/real", "mip/real64"):
+    for path in ("mip/small", "mip/real", "mip/real64", "df32/real", "mesh/world1"):
         _check(by_path[path]["fused_price_scan"] > 0,
                f"{path} never launched the scan kernel")
-    return by_path, replays["mip/real"]()
+    scan_errors = {path: replays[path]() for path in ("df32/real", "mesh/world1")}
+    return by_path, replays["mip/real"](), scan_errors
 
 
 _REFUSED = ("jax", "jaxlib", "relp_tpu")
@@ -1752,7 +2118,7 @@ def main() -> int:
 
     price_scan.LAUNCHES = 0  # counts from here on are the main path's
     knap6_pivots = phase_main_small(torch)
-    phase_main_real(torch, np)
+    main_result = phase_main_real(torch, np)
     launches = price_scan.LAUNCHES
     _check(launches > 0, "the main path never launched the scan kernel")
 
@@ -1773,7 +2139,8 @@ def main() -> int:
     phase_batch_warm(torch, np)
     phase_batch_chunk(torch, np)
 
-    by_path, mip_errors = phase_other_modes(torch, np, device, knap6_pivots)
+    by_path, mip_errors, scan_errors = phase_other_modes(
+        torch, np, device, knap6_pivots, main_result)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in _REFUSED)
     _check(not loaded, f"imported: {loaded}")
 
@@ -1787,6 +2154,8 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": errors[main_case],
         "mip_real_abs_err": mip_errors["fused_price_scan"],
+        "df32_real_abs_err": scan_errors["df32/real"],
+        "mesh_world1_abs_err": scan_errors["mesh/world1"],
         "ms": kern_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

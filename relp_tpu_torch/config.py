@@ -28,7 +28,8 @@ class SolverConfig:
     # dtype of the tableau copy read by the pricing / steepest-edge scans
     # ("float32" | "bfloat16" | "same").
     scan_dtype: str = "float32"
-    # "native" only in the port; "df32" is validated but not yet ported.
+    # "native" | "df32" (double-float carry; asked for, never entered by
+    # the escalation ladder, since f64 is native on CUDA and the CPU).
     carry: str = "native"
     # "dantzig" | "steepest" | "first" | "first_memory".
     pricing: str = "steepest"

@@ -17,8 +17,13 @@ Differences from the JAX code, and why:
   ``(k0+i+1)/(k0+i+2)`` of a chunk are formed on the host in f64 and cast
   to the iterate dtype once per chunk, as the JAX chunk forms each in its
   default float type and casts it to ``A.dtype``.
-* ``mesh`` (row/column sharding) raises ``NotImplementedError``; its
-  ``row_axis``/``col_axis`` arguments are not kept.
+* ``mesh`` shards A in 2-D, rows over "batch" and columns over "col",
+  zero-padded to equal shards as in the JAX package; the reductions that
+  GSPMD inserts there are written out (``_Grid``): ``A x`` is summed over
+  the column group, ``y A`` over the row group, and the norms and dot
+  products behind the KKT residuals and the restart decisions are reduced,
+  so every rank decides alike.  The ``row_axis``/``col_axis`` arguments
+  are not kept: the axes are the mesh's "batch" and "col".
 * The scaling is a function of its own (``scale_problem``), so that a
   check can rebuild the iterated system from the same inputs.
 * ``solve_first_order`` also attaches the PDHG statistics to the result
@@ -72,33 +77,125 @@ def ruiz_equilibrate(
     return As, d_row, d_col
 
 
-def _power_norm(A: torch.Tensor, iters: int = 30) -> float:
-    """Spectral norm estimate by power iteration on A'A."""
-    rng = np.random.default_rng(0)
-    v = torch.as_tensor(rng.standard_normal(A.shape[1]), device=A.device).to(A.dtype)
+class _Local:
+    """The reductions of one device: a plain matvec, norm and dot."""
+
+    @staticmethod
+    def Ax(A, x):
+        return torch.matmul(A, x)
+
+    @staticmethod
+    def yA(y, A):
+        return torch.matmul(y, A)
+
+    @staticmethod
+    def norm_rows(v):
+        return torch.linalg.vector_norm(v)
+
+    norm_cols = norm_rows
+
+    @staticmethod
+    def dot_rows(a, b):
+        return torch.matmul(a, b)
+
+    dot_cols = dot_rows
+
+    @staticmethod
+    def sum_cols(v):
+        return torch.sum(v)
+
+
+class _Grid:
+    """The reductions of a 2-D sharded A (rows over the mesh's "batch"
+    axis, columns over "col"): each rank holds block (i, j) of A, block j of
+    x, c, u and block i of y, b; a sum over columns is an all_reduce over
+    the ranks of the same row block (the "col" group), a sum over rows one
+    over the "batch" group."""
+
+    def __init__(self, mesh):
+        from relp_tpu_torch.parallel.sharded import _group
+
+        self.rows, self.n_r, self.i = _group(mesh, "batch")
+        self.cols, self.n_c, self.j = _group(mesh, "col")
+
+    @staticmethod
+    def _sum(t, group):
+        import torch.distributed as dist
+
+        from relp_tpu_torch.parallel import sharded
+
+        sharded._count()
+        dist.all_reduce(t, group=group)
+        return t
+
+    def Ax(self, A, x):
+        return self._sum(torch.matmul(A, x), self.cols)
+
+    def yA(self, y, A):
+        return self._sum(torch.matmul(y, A), self.rows)
+
+    def norm_rows(self, v):
+        return torch.sqrt(self._sum(torch.sum(v * v), self.rows))
+
+    def norm_cols(self, v):
+        return torch.sqrt(self._sum(torch.sum(v * v), self.cols))
+
+    def dot_rows(self, a, b):
+        return self._sum(torch.matmul(a, b), self.rows)
+
+    def dot_cols(self, a, b):
+        return self._sum(torch.matmul(a, b), self.cols)
+
+    def sum_cols(self, v):
+        return self._sum(torch.sum(v), self.cols)
+
+    def block(self, x, parts: int, index: int):
+        n = x.shape[0] // parts
+        return x[index * n:(index + 1) * n]
+
+    def gather(self, v, group, parts: int):
+        import torch.distributed as dist
+
+        from relp_tpu_torch.parallel import sharded
+
+        out = [torch.empty_like(v) for _ in range(parts)]
+        sharded._count()
+        dist.all_gather(out, v.contiguous(), group=group)
+        return torch.cat(out)
+
+
+_LOCAL = _Local()
+
+
+def _power_norm(A: torch.Tensor, iters: int = 30, ops=_LOCAL, v0=None) -> float:
+    """Spectral norm estimate by power iteration on A'A (``v0``: this
+    rank's block of the start vector on a grid)."""
+    if v0 is None:
+        rng = np.random.default_rng(0)
+        v0 = rng.standard_normal(A.shape[1])
+    v = torch.as_tensor(v0, device=A.device).to(A.dtype)
     for _ in range(iters):
-        w = torch.matmul(torch.matmul(A, v), A)
-        v = w / torch.clamp_min(torch.linalg.vector_norm(w), 1e-30)
-    return float(torch.sqrt(torch.linalg.vector_norm(torch.matmul(torch.matmul(A, v), A))))
+        w = ops.yA(ops.Ax(A, v), A)
+        v = w / torch.clamp_min(ops.norm_cols(w), 1e-30)
+    return float(torch.sqrt(ops.norm_cols(ops.yA(ops.Ax(A, v), A))))
 
 
-def _kkt(A, b, c, u, x, y) -> Tuple[float, float, float]:
+def _kkt(A, b, c, u, x, y, ops=_LOCAL) -> Tuple[float, float, float]:
     """KKT residuals for ``min c'x s.t. Ax=b, 0 <= x <= u`` (u may be inf).
 
     lambda = c - A'y decomposes onto the box's bound multipliers: columns
     with a finite upper bound absorb either sign, so only unbounded
     columns' negative parts are dual-infeasible; the dual objective is
     ``b'y + sum_{u_j<inf} u_j min(lambda_j, 0)`` (PDLP sec. 2)."""
-    norm = torch.linalg.vector_norm
-    pr = float(norm(torch.matmul(A, x) - b)) / (1.0 + float(norm(b)))
-    lam = c - torch.matmul(y, A)
+    pr = float(ops.norm_rows(ops.Ax(A, x) - b)) / (1.0 + float(ops.norm_rows(b)))
+    lam = c - ops.yA(y, A)
     finite_u = torch.isfinite(u)
     viol = torch.where(finite_u, 0.0, torch.clamp_min(-lam, 0.0))
-    du = float(norm(viol)) / (1.0 + float(norm(c)))
-    pobj = float(torch.matmul(c, x))
+    du = float(ops.norm_cols(viol)) / (1.0 + float(ops.norm_cols(c)))
+    pobj = float(ops.dot_cols(c, x))
     dobj = float(
-        torch.matmul(b, y)
-        + torch.sum(
+        ops.dot_rows(b, y)
+        + ops.sum_cols(
             torch.where(finite_u, torch.where(u > 0, u, 0.0), 0.0)
             * torch.clamp_max(lam, 0.0)
         )
@@ -108,7 +205,7 @@ def _kkt(A, b, c, u, x, y) -> Tuple[float, float, float]:
 
 
 def _pdhg_chunk(x, y, ax, ay, k0: float, tau: float, sigma: float, A, b, c, u,
-                *, chunk: int):
+                *, chunk: int, ops=_LOCAL):
     """Reflected Halpern PDHG (cuPDLPx / Lu-Yang r2HPDHG):
     ``z+ = (k+1)/(k+2) * (2 T(z) - z) + 1/(k+2) * anchor``.
     Returns the advanced state plus the last plain PDHG iterate ``T(z)``
@@ -120,10 +217,10 @@ def _pdhg_chunk(x, y, ax, ay, k0: float, tau: float, sigma: float, A, b, c, u,
     zero = torch.zeros((), dtype=A.dtype, device=A.device)
     x_t, y_t = x, y
     for i in range(chunk):
-        g = c - torch.matmul(y, A)
+        g = c - ops.yA(y, A)
         x_t = torch.clamp(x - tau * g, min=zero, max=u)
         step = 2.0 * x_t - x
-        y_t = y + sigma * (b - torch.matmul(A, step))
+        y_t = y + sigma * (b - ops.Ax(A, step))
         x, y = (lams[i] * step + rest[i] * ax,
                 lams[i] * (2.0 * y_t - y) + rest[i] * ay)
     return x, y, x_t, y_t
@@ -176,28 +273,45 @@ def pdhg_solve(
     The inner chunk is ``chunk`` iterations on ``device`` (two matvecs plus
     a box projection each); the host loop checks KKT residuals on the
     per-chunk candidate and applies PDLP's restart criteria.
+
+    With ``mesh`` the iterated system is 2-D sharded (see ``_Grid``); call
+    it on every rank of the mesh, which all return the same (x, y, stats).
+    Zero padding (zero rows, zero-width ``u=0`` columns) makes every shard
+    equal-sized and is exactly absorbing: padded x stays clipped at 0 and
+    padded y at 0.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (row/column-sharded PDHG) is not ported to relp_tpu_torch "
-            "yet: ROADMAP.md Queue 1, item 16"
-        )
     dev = _device_of(device)
     t0 = time.time()
+    m, n = A_np.shape
     if u_np is None:
-        u_np = np.full(A_np.shape[1], np.inf)
+        u_np = np.full(n, np.inf)
     As, bs, cs, us, d_row, d_col = scale_problem(A_np, b_np, c_np, u_np, dtype)
 
-    A = torch.as_tensor(As, device=dev)
+    # Primal weight: tau = step/w, sigma = step*w (from the whole c and b).
+    w0 = float(np.linalg.norm(cs) / max(np.linalg.norm(bs), 1e-12)) or 1.0
+    ops, v0 = _LOCAL, None
+    if mesh is not None:
+        ops = _Grid(mesh)
+        m_pad, n_pad = (-m) % ops.n_r, (-n) % ops.n_c
+        if m_pad or n_pad:
+            As = np.pad(As, ((0, m_pad), (0, n_pad)))
+            bs = np.pad(bs, (0, m_pad))
+            cs = np.pad(cs, (0, n_pad))
+            us = np.pad(us, (0, n_pad))  # u=0 pins padded x at 0
+        v0 = ops.block(np.random.default_rng(0).standard_normal(n + n_pad),
+                       ops.n_c, ops.j)
+        As = ops.block(ops.block(As, ops.n_r, ops.i).T, ops.n_c, ops.j).T
+        bs = ops.block(bs, ops.n_r, ops.i)
+        cs, us = ops.block(cs, ops.n_c, ops.j), ops.block(us, ops.n_c, ops.j)
+
+    A = torch.as_tensor(np.ascontiguousarray(As), device=dev)
     b = torch.as_tensor(bs, device=dev)
     c = torch.as_tensor(cs, device=dev)
     u = torch.as_tensor(us, device=dev)
 
-    norm_A = max(_power_norm(A), 1e-12)
+    norm_A = max(_power_norm(A, ops=ops, v0=v0), 1e-12)
     step = 0.9 / norm_A
-    # Primal weight: tau = step/w, sigma = step*w.
-    w = float(np.linalg.norm(cs) / max(np.linalg.norm(bs), 1e-12)) or 1.0
-    w = min(max(w, 1e-4), 1e4)
+    w = min(max(w0, 1e-4), 1e4)
 
     x = torch.zeros_like(c)
     y = torch.zeros_like(b)
@@ -213,12 +327,12 @@ def pdhg_solve(
         tau = step / w
         sigma = step * w
         x, y, x_t, y_t = _pdhg_chunk(x, y, ax, ay, k0, tau, sigma, A, b, c, u,
-                                     chunk=chunk)
+                                     chunk=chunk, ops=ops)
         stats.iterations += chunk
         k0 += chunk
 
         cand = (x_t, y_t)
-        cand_res = _kkt(A, b, c, u, x_t, y_t)
+        cand_res = _kkt(A, b, c, u, x_t, y_t, ops)
         stats.primal_residual, stats.dual_residual, stats.gap = cand_res
         res = max(cand_res)
         if res < best_res:
@@ -239,8 +353,8 @@ def pdhg_solve(
         res_prev = res
         if sufficient or necessary or artificial:
             cand, res = best_cand, best_res
-            dx = float(torch.linalg.vector_norm(cand[0] - x_anchor))
-            dy = float(torch.linalg.vector_norm(cand[1] - y_anchor))
+            dx = float(ops.norm_cols(cand[0] - x_anchor))
+            dy = float(ops.norm_rows(cand[1] - y_anchor))
             if dx > 1e-12 and dy > 1e-12:
                 w = min(max(w * np.sqrt(dy / dx), 1e-4), 1e4)
             x, y = cand
@@ -252,10 +366,14 @@ def pdhg_solve(
             res_prev = float("inf")
             stats.restarts += 1
 
+    if mesh is not None:  # the whole (padded) x and y on every rank
+        x = ops.gather(x, ops.cols, ops.n_c)
+        y = ops.gather(y, ops.rows, ops.n_r)
     stats.wall_time_s = time.time() - t0
-    # Undo the scaling (original x = D_c x_s, y = D_r y_s).
-    x_out = x.to(torch.float64).cpu().numpy() * d_col
-    y_out = y.to(torch.float64).cpu().numpy() * d_row
+    # Undo the scaling (original x = D_c x_s, y = D_r y_s), dropping any
+    # mesh padding first.
+    x_out = x.to(torch.float64).cpu().numpy()[:n] * d_col
+    y_out = y.to(torch.float64).cpu().numpy()[:m] * d_row
     return x_out, y_out, stats
 
 
@@ -306,11 +424,6 @@ def solve_first_order(
     """
     cfg = config or default_config()
     device = torch_device(cfg)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (row/column-sharded PDHG) is not ported to relp_tpu_torch "
-            "yet: ROADMAP.md Queue 1, item 16"
-        )
     dtype = np.float32 if cfg.dtype == "float32" else np.float64
     A, b, c = provider.to_arrays(dtype=np.float64)
     m = A.shape[0]
@@ -338,7 +451,7 @@ def solve_first_order(
 
     x_s, y_s, stats = pdhg_solve(
         A_s, b_s, c_s, u, tol=tol, max_iters=max_iters, chunk=chunk,
-        dtype=dtype, device=device,
+        dtype=dtype, mesh=mesh, device=device,
     )
     # Lift back to the full standard form: bound-row slacks s_r = u - x_j.
     x = np.zeros(A.shape[1])

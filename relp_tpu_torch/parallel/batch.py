@@ -13,6 +13,11 @@ single-LP ``_iteration``.
 
 ``megakernel_run_chunk`` runs a chunk through the hand-written batched-pivot
 kernels of ``relp_tpu_torch.ops.batch_pivot`` (one CUDA block per LP).
+
+With a ``shard`` (``relp_tpu_torch.parallel.sharded.ColumnShard``) the
+column-sized arrays hold this rank's block of every LP's columns, as in the
+single-LP kernels: the entering choice, the entering column and B at
+refactorization are combined across ranks per LP.
 """
 
 from __future__ import annotations
@@ -86,10 +91,14 @@ def _select(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.T
     return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
 
 
-def _select_entering(d, gamma, eligible, pricing: int, start):
-    """Per-LP entering column; returns (q, any_eligible), q int64 (B,)."""
+def _select_entering(d, gamma, eligible, pricing: int, start, shard=None):
+    """Per-LP entering column; returns (q, any_eligible), q int64 (B,)
+    (global with a shard)."""
     N = d.shape[1]
     any_eligible = eligible.any(dim=1)
+    if shard is not None:
+        return _select_entering_sharded(d, gamma, eligible, any_eligible,
+                                        pricing, start, shard)
     if pricing == PRICE_DANTZIG:
         q = torch.argmax(torch.where(eligible, -d, float("-inf")), dim=1)
     elif pricing == PRICE_STEEPEST:
@@ -100,6 +109,27 @@ def _select_entering(d, gamma, eligible, pricing: int, start):
     else:  # Bland / first-profitable: smallest eligible index
         q = torch.clamp_max(torch.where(eligible, _ids(N, d), N).amin(dim=1), N - 1)
     return q, any_eligible
+
+
+def _select_entering_sharded(d, gamma, eligible, any_eligible, pricing,
+                             start, shard):
+    """``_select_entering`` over column shards, per LP: each rank's first
+    local maximum of the key, combined by ``shard.best`` (see
+    ``kernels._select_entering_sharded``)."""
+    N, ids = shard.N, shard.ids.unsqueeze(0)
+    if pricing == PRICE_DANTZIG:
+        key = torch.where(eligible, -d, float("-inf"))
+    elif pricing == PRICE_STEEPEST:
+        key = torch.where(eligible, d * d / gamma, float("-inf"))
+    elif pricing == PRICE_FIRST_MEMORY:
+        key = -torch.where(eligible, (ids - start.unsqueeze(1)) % N, N)
+    else:
+        key = -torch.where(eligible, ids, N)
+    loc = torch.argmax(key, dim=1)
+    q, any_all, top = shard.best(_take(key, loc), loc, any_eligible)
+    if pricing not in (PRICE_DANTZIG, PRICE_STEEPEST, PRICE_FIRST_MEMORY):
+        q = torch.clamp_max((-top).to(torch.int64), N - 1)
+    return q, any_all
 
 
 def _select_leaving(xB, w, basis, pricing: int, pivot_tol: float):
@@ -126,11 +156,15 @@ def _select_leaving(xB, w, basis, pricing: int, pivot_tol: float):
 def _batched_iteration(
     s: SimplexState, A_scan, A_full, c, c_scan, candidate_mask,
     active: torch.Tensor, *, pricing: int, opt_tol: float, pivot_tol: float,
-    degen_tol: float, noisy_scan: bool,
+    degen_tol: float, noisy_scan: bool, shard=None,
 ) -> SimplexState:
     """One primal iteration of every LP: ``_iteration`` of
     relp_tpu_torch.simplex.kernels with a leading batch dimension."""
     B, M, N = A_scan.shape
+    # Column ids of this rank's block (global); N the global width.
+    col_ids = _ids(N, s.d) if shard is None else shard.ids.unsqueeze(0)
+    if shard is not None:
+        N = shard.N
     scan_dtype = A_scan.dtype
     low_precision_scan = scan_dtype != A_full.dtype
     noisy = noisy_scan and not low_precision_scan and scan_dtype == torch.float32
@@ -150,12 +184,17 @@ def _batched_iteration(
         threshold = opt_tol
     eligible = candidate_mask & ~s.in_basis & (d < -threshold)
     gamma = s.gamma.to(scan_dtype)
-    q, any_eligible = _select_entering(d, gamma, eligible, pricing, s.price_start)
+    q, any_eligible = _select_entering(d, gamma, eligible, pricing, s.price_start,
+                                       shard)
 
     # --- FTRAN at working precision ---
-    a_q = _col(A_full, q)
+    if shard is None:
+        a_q = _col(A_full, q)
+        c_q = _take(c, q)
+    else:  # from the owners; c_B too, for the objective below
+        a_q, c_q, cB = shard.fetch(A_full, c, q, s.basis)
     w = _matvec(s.Binv, a_q)
-    d_q_full = _take(c, q) - _dot(s.pi, a_q)
+    d_q_full = c_q - _dot(s.pi, a_q)
     if guarded:
         any_eligible = any_eligible & (d_q_full < -opt_tol)
 
@@ -168,7 +207,7 @@ def _batched_iteration(
 
     # --- basis change (product-form update) ---
     row_r = _ids(M, w) == r.unsqueeze(1)  # (B, M)
-    col_q = _ids(N, d) == q.unsqueeze(1)  # (B, N)
+    col_q = col_ids == q.unsqueeze(1)  # (B, N)
     w_r = _take(w, r)
     safe_w_r = torch.where(do_pivot, w_r, 1.0)
     t = torch.clamp_min(_take(s.xB, r), 0.0) / safe_w_r
@@ -180,13 +219,17 @@ def _batched_iteration(
     xB_new = torch.where(row_r, t.unsqueeze(1), s.xB - t.unsqueeze(1) * w)
 
     leaving = _take(s.basis, r).to(torch.int64)
-    col_leaving = _ids(N, d) == leaving.unsqueeze(1)
+    col_leaving = col_ids == leaving.unsqueeze(1)
     basis_new = torch.where(row_r, q.to(torch.int32).unsqueeze(1), s.basis)
     in_basis_new = torch.where(col_q, True, torch.where(col_leaving, False, s.in_basis))
 
     # Incremental dual update; the objective is recomputed as cB . xB.
     pi_new = s.pi + d_q_full.unsqueeze(1) * Binv_r
-    obj_new = _dot(torch.take_along_dim(c, basis_new.to(torch.int64), dim=1), xB_new)
+    if shard is None:
+        cB_new = torch.take_along_dim(c, basis_new.to(torch.int64), dim=1)
+    else:
+        cB_new = torch.where(row_r, c_q.unsqueeze(1), cB)
+    obj_new = _dot(cB_new, xB_new)
 
     # --- next reduced costs and, for steepest edge, the Goldfarb weights:
     # one stacked (3, M) x (M, N) product per LP ---
@@ -320,16 +363,24 @@ def _batched_dual_iteration(
 # torch.vmap, as the JAX batch driver vmaps them (batch_driver.py:62-86) ---
 
 
-def _v_newton(Binv, A, b, c, basis, *, steps: int):
+def _v_newton(Binv, A, b, c, basis, *, steps: int, shard=None):
     """Newton-Schulz refresh of every carried inverse: (Binv, xB, pi, obj,
     residual), each with a leading batch dimension."""
+    if shard is not None:  # B from the owners, outside the vmap
+        Bm, cB = shard.basis_columns(A, c, basis)
+        fn = functools.partial(kernels._newton, steps=steps)
+        return torch.vmap(fn)(Bm, Binv, b, cB)
     fn = functools.partial(kernels.newton_refresh, steps=steps)
     return torch.vmap(fn)(Binv, A, b, c, basis)
 
 
-def _v_refactor(A, b, c, basis, *, newton_steps: int):
+def _v_refactor(A, b, c, basis, *, newton_steps: int, shard=None):
     """From-scratch inverses of every basis (f32 ``inv_ex`` + Newton-Schulz;
     a singular basis gives a non-finite residual)."""
+    if shard is not None:
+        Bm, cB = shard.basis_columns(A, c, basis)
+        fn = functools.partial(kernels._newton_from, newton_steps=newton_steps)
+        return torch.vmap(fn)(Bm, cB, b)
     fn = functools.partial(kernels.refactorize, newton_steps=newton_steps)
     return torch.vmap(fn)(A, b, c, basis)
 
@@ -362,6 +413,7 @@ def batched_run_chunk(
     newton_steps: int = 1,
     feas_tol: float = 1e-9,
     noisy_scan: bool = False,
+    shard=None,
 ) -> SimplexState:
     """Advance every LP in the batch by up to ``chunk`` pivots.
 
@@ -389,7 +441,8 @@ def batched_run_chunk(
 
         def refresh(s):
             Binv, xB, pi, obj, _residual = _v_newton(
-                s.Binv, A_full, b, c, s.basis, steps=max(2, newton_steps + 1)
+                s.Binv, A_full, b, c, s.basis, steps=max(2, newton_steps + 1),
+                shard=shard,
             )
             xB = torch.where(xB > -feas_tol, torch.clamp_min(xB, 0.0), xB)
             s = s._replace(Binv=Binv, xB=xB, pi=pi, obj=obj)
@@ -399,6 +452,8 @@ def batched_run_chunk(
 
     for k in range(chunk):
         active = active_mask(s)
+        # With a shard every rank holds the same LPs' replicated status and
+        # objective, so every rank leaves the loop at the same step.
         if on_cpu and not bool(active.any()):
             break
         if refactor_period > 0 and k > 0 and k % refactor_period == 0:
@@ -416,7 +471,7 @@ def batched_run_chunk(
         s = _batched_iteration(
             s, A_scan, A_full, c, c_scan, candidate_mask, active,
             pricing=pricing, opt_tol=opt_tol, pivot_tol=pivot_tol,
-            degen_tol=degen_tol, noisy_scan=noisy_scan,
+            degen_tol=degen_tol, noisy_scan=noisy_scan, shard=shard,
         )
     return s
 

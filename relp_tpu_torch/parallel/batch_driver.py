@@ -13,9 +13,15 @@ driver, which has the full rank-repair machinery.
 
 Differences from the JAX driver:
 
-* ``mesh`` raises ``NotImplementedError`` (ROADMAP.md Queue 1, item 16).
-* There is no persistent compile cache to enable (Queue 1, item 17): the
-  port runs eagerly, and its kernel library is cached by source hash.
+* ``mesh`` shards the scenarios over its "batch" axis (when the count
+  divides it, else they are replicated) and every LP's columns over "col",
+  with the collectives written out (``relp_tpu_torch.parallel.sharded``).
+  Each rank certifies its own scenarios, the host's loop decisions are
+  all-reduced over the world, and every rank returns the whole list.  As
+  in the JAX package, the batched-pivot kernels and the dual warm restart
+  stay off under a mesh.
+* There is no persistent compile cache to enable: the port runs eagerly,
+  and its kernel library is cached by source hash.
 * The report of each chunk is the host's one read per chunk; the chunk
   itself reads nothing on CUDA.
 """
@@ -61,7 +67,7 @@ def _batch_step(
     batch, A_scan, A, b, c, cand, *,
     pricing, chunk, opt_tol, pivot_tol, degen_tol, noisy_scan,
     stop_at_zero, hi_scan, mega,
-    newton_steps, feas_tol, refactor_period, use_steepest,
+    newton_steps, feas_tol, refactor_period, use_steepest, shard=None,
 ):
     """One chunk of pivots, then the Newton-Schulz refresh and the gamma
     refresh, returning (new batch, (4, B) report of status, obj, iteration
@@ -79,7 +85,7 @@ def _batch_step(
             pivot_tol=pivot_tol, degen_tol=degen_tol, noisy_scan=noisy_scan,
             refactor_period=refactor_period,
             b=b if refactor_period > 0 else None,
-            newton_steps=newton_steps, feas_tol=feas_tol,
+            newton_steps=newton_steps, feas_tol=feas_tol, shard=shard,
         )
     rearm = torch.zeros_like(batch.status, dtype=torch.bool)
     if noisy_scan and not hi_scan:
@@ -96,7 +102,8 @@ def _batch_step(
         rearm.to(A.dtype),
     ])
     Binv, xB, pi, obj, residual = _v_newton(
-        batch.Binv, A, b, c, batch.basis, steps=2 if newton_steps <= 1 else 3
+        batch.Binv, A, b, c, batch.basis, steps=2 if newton_steps <= 1 else 3,
+        shard=shard,
     )
     xB = torch.where(xB > -feas_tol, torch.clamp_min(xB, 0.0), xB)
     # Numerical breakdown (a NaN or diverged carry): freeze the LP as
@@ -203,14 +210,11 @@ def solve_batch(
     path otherwise; ``cfg.pallas_batch`` is kept for configuration
     compatibility and selects nothing.
 
-    ``mesh`` (column sharding) is not ported and raises.
+    ``mesh`` (``relp_tpu_torch.parallel.make_mesh``) shards the scenarios
+    over its "batch" axis when their count divides it (else every rank
+    holds all of them) and each LP's columns over "col"; call it on every
+    rank of the mesh, which all return the whole list.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (batch x column sharding) is not ported to relp_tpu_torch "
-            "yet: ROADMAP.md Queue 1, item 16, 'parallel/sharded.py + "
-            "parallel/mesh.py'"
-        )
     cfg = config or default_config()
     if certify is None:
         certify = cfg.certify
@@ -221,6 +225,28 @@ def solve_batch(
     M, N = problems[0].M, problems[0].N
     mixed = cfg.scan_dtype not in ("same", cfg.dtype)
     A_scan = cast_tableau(A, scan_dtype(cfg)) if mixed else A
+    c2_host = c2.cpu().numpy()
+    shard = None
+    lo, hi = 0, len(problems)
+    if mesh is not None:
+        from relp_tpu_torch.parallel.sharded import (
+            batch_block,
+            column_shard,
+            shard_batch_problem,
+            shard_batch_state,
+        )
+
+        # This rank's scenarios [lo, hi) and column block of each.
+        lo, hi = batch_block(mesh, len(problems))
+        shard = column_shard(mesh, N, device)
+        A, b, c1, cand, A_scan_s = shard_batch_problem(
+            mesh, A, b, c1, cand, A_scan=A_scan if mixed else None
+        )
+        A_scan = A_scan_s if mixed else A
+        c2 = shard.take(c2[lo:hi])
+        batch = shard_batch_state(mesh, batch)
+    my_providers = list(providers)[lo:hi]
+    problems = problems[lo:hi]
 
     newton = 3 if cfg.dtype == "float64" else 1
     noisy_backend = noisy_f32_matmul()
@@ -239,7 +265,7 @@ def solve_batch(
 
     def refactor(batch, c):
         Binv, xB, pi, obj, residual = _v_refactor(
-            A, b, c, batch.basis, newton_steps=newton
+            A, b, c, batch.basis, newton_steps=newton, shard=shard
         )
         xB = torch.where(xB > -cfg.feas_tol, torch.clamp_min(xB, 0.0), xB)
         return batch._replace(Binv=Binv, xB=xB, pi=pi, obj=obj), residual
@@ -260,8 +286,22 @@ def solve_batch(
             stop_at_zero=stop_at_zero, hi_scan=hi_scan, mega=mega,
             newton_steps=newton, feas_tol=cfg.feas_tol,
             refactor_period=in_chunk_period,
-            use_steepest=pricing == PRICE_STEEPEST, **kwargs,
+            use_steepest=pricing == PRICE_STEEPEST, shard=shard, **kwargs,
         )
+
+    def world_any(*flags):
+        """The host's loop decisions, the same on every rank: each flag
+        or-ed over the world (ranks hold different scenarios)."""
+        if mesh is None:
+            return flags
+        import torch.distributed as dist
+
+        from relp_tpu_torch.parallel import sharded
+
+        t = torch.tensor([float(f) for f in flags], device=device)
+        sharded._count()
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return tuple(bool(v) for v in t.cpu().numpy() > 0)
 
     _timing = _os.environ.get("RELP_TPU_BATCH_TIMING", "")
 
@@ -294,9 +334,13 @@ def solve_batch(
             running = status == RUNNING
             if stop_at_zero:
                 running = running & (obj > 1e-9)
-            if not running.any() or report[2].max() >= cfg.max_iterations:
+            any_running, at_limit, any_rearmed = world_any(
+                running.any(), report[2].max() >= cfg.max_iterations,
+                report[3].max() > 0,
+            )
+            if not any_running or at_limit:
                 break
-            if not hi and report[3].max() > 0:
+            if not hi and any_rearmed:
                 hi = True  # scan-noise freezes: polish chunks from here
         # The returned state is freshly refreshed (basis-exact xB/pi/obj).
         return batch
@@ -382,7 +426,7 @@ def solve_batch(
     t0 = time.time()
     dual_iters = np.zeros(len(problems), dtype=np.int64)
     warm_engaged = False
-    if warm_start_basis is not None and cfg.dual_restart:
+    if warm_start_basis is not None and cfg.dual_restart and mesh is None:
         batch_or_cold, warm_dual_iters = try_warm_dual(batch)
         if warm_dual_iters is not None:
             batch = batch_or_cold
@@ -424,7 +468,7 @@ def solve_batch(
         polish = np.where(status == OPTIMAL, RUNNING, status)
         batch = with_status(batch, polish)
         batch, _ = refactor(batch, c2)
-        batch = batched_run_chunk(batch, A, A, c2, cand, **kwargs)
+        batch = batched_run_chunk(batch, A, A, c2, cand, shard=shard, **kwargs)
 
     # Final from-scratch refactorization: extraction never trusts a carried
     # inverse; the residual and the basis-exact xB gate send bad LPs to the
@@ -442,7 +486,7 @@ def solve_batch(
     basis_all = batch.basis.cpu().numpy()
     xB_all = batch.xB.cpu().numpy()
     obj_all = batch.obj.cpu().numpy()
-    c2_np = c2.cpu().numpy()
+    c2_np = c2_host[lo:hi]  # the full width, for the host rescue
     iters = batch.iteration.cpu().numpy()
     n_fallback = 0
     n_rescued = 0
@@ -469,7 +513,7 @@ def solve_batch(
         obj64 = float(np.asarray(c2_np[k], np.float64)[basis_all[k]] @ xB64)
         return xB64, obj64
 
-    for k, (provider, problem) in enumerate(zip(providers, problems)):
+    for k, (provider, problem) in enumerate(zip(my_providers, problems)):
         stats = SolveStats(
             iterations=int(iters[k]),
             phase1_iterations=int(phase1_iters[k]),
@@ -561,8 +605,16 @@ def solve_batch(
     if n_fallback:
         _log.info(
             "batch solve: %d/%d LPs fell back to the single-LP driver",
-            n_fallback, len(providers),
+            n_fallback, len(my_providers),
         )
+    if mesh is not None and hi - lo < len(providers):
+        # Every rank returns the whole list, in scenario order.
+        import torch.distributed as dist
+
+        group = mesh.get_group("batch")
+        parts = [None] * dist.get_world_size(group)
+        dist.all_gather_object(parts, results, group=group)
+        results = [r for part in parts for r in part]
     return results
 
 

@@ -4,8 +4,8 @@ Phase 1 minimises the artificial cost; zero-level artificials are driven
 out and rows where that is impossible are removed (rank repair); phase 2
 runs the real costs; the device runs chunks of pivots and the host reads
 the state once per chunk, refactorizes, switches to Bland's rule on
-degeneracy stalls, and finally certifies the basis exactly with the shared
-``relp_tpu.exact.certify``.
+degeneracy stalls, and finally certifies the basis exactly with the port's
+own copy of the exact certifier, ``relp_tpu_torch.exact.certify``.
 
 Deliberate differences from the JAX driver:
 
@@ -13,9 +13,15 @@ Deliberate differences from the JAX driver:
   the escalation ladder is f32 -> f64 (no double-float rung).
 * f32 matmuls are true f32, so an OPTIMAL reached mid-chunk is final: the
   JAX driver's noisy-backend polish branch has no counterpart.
-* ``mesh`` (column sharding) raises ``NotImplementedError`` (ROADMAP
-  work).  The ``host_sparse`` backend is chosen by ``"auto"`` only on the
-  CPU (``host_sparse.should_use_host_sparse``), never on CUDA.
+* ``mesh`` (a ``DeviceMesh`` of ``relp_tpu_torch.parallel.make_mesh``)
+  shards the tableau by column over its "col" axis with the collectives
+  written out (``relp_tpu_torch.parallel.sharded``); every rank runs the
+  same host code on the same replicated state and returns the same result.
+  The JAX driver's gates under a mesh hold: no ``host_sparse`` route by
+  "auto", no dual restart of a warm basis, no df32 (it raises).  The LU
+  engine does not run sharded and raises.  The ``host_sparse`` backend is
+  chosen by ``"auto"`` only on the CPU
+  (``host_sparse.should_use_host_sparse``), never on CUDA.
 * The LU engine's state has no ``degen_count`` and no dual iteration, so
   the Bland trigger and the dual warm restart apply to the dense engine
   only, as in the JAX driver.
@@ -88,32 +94,69 @@ def _np_dtype(cfg: SolverConfig):
     return np.float64 if cfg.dtype == "float64" else np.float32
 
 
+def _lower_dtype(cfg: SolverConfig):
+    # The df32 carry lowers the problem in f64 and splits it into hi/lo
+    # pairs, so the data is as accurate as the compensated carry.
+    return np.float64 if cfg.carry == "df32" else _np_dtype(cfg)
+
+
 def _with_status(state, code: int):
     return state._replace(
         status=torch.tensor(code, dtype=torch.int32, device=state.status.device)
     )
 
 
-def _device_arrays(problem: DeviceProblem, cfg: SolverConfig, device):
+def _device_arrays(problem: DeviceProblem, cfg: SolverConfig, device, shard=None):
     """Device tensors of the lowered problem: (A, A_scan, b, c1, c2, mask).
-    A_scan is A itself unless the scan dtype differs from the working one."""
+    A_scan is A itself unless the scan dtype differs from the working one.
+    For carry="df32" the f64 lowering is split into DfMatrix/DfVec hi+lo
+    pairs, and A_scan is the hi part (the f32 scan copy).  With a column
+    ``shard`` the column-sized arrays are this rank's block (b is
+    replicated)."""
+    if shard is not None:
+        A = shard.take(problem.A)
+        sdt = scan_dtype(cfg)
+        return (A, A if sdt == A.dtype else A.to(sdt),
+                torch.as_tensor(problem.b, device=device),
+                shard.take(problem.c_phase1), shard.take(problem.c_phase2),
+                shard.take(problem.candidate_mask))
+    mask = torch.as_tensor(problem.candidate_mask, device=device)
+    if cfg.carry == "df32":
+        from relp_tpu_torch.ops.df32 import df_from_f64
+        from relp_tpu_torch.simplex.df_kernels import DfMatrix, DfVec
+
+        A = DfMatrix(*df_from_f64(problem.A, device))
+        b = DfVec(*df_from_f64(problem.b, device))
+        c1 = DfVec(*df_from_f64(problem.c_phase1, device))
+        c2 = DfVec(*df_from_f64(problem.c_phase2, device))
+        return A, A.hi, b, c1, c2, mask
     A = torch.as_tensor(problem.A, device=device)
     sdt = scan_dtype(cfg)
     A_scan = A if sdt == A.dtype else A.to(sdt)
     b = torch.as_tensor(problem.b, device=device)
     c1 = torch.as_tensor(problem.c_phase1, device=device)
     c2 = torch.as_tensor(problem.c_phase2, device=device)
-    mask = torch.as_tensor(problem.candidate_mask, device=device)
     return A, A_scan, b, c1, c2, mask
 
 
-def _validate(state, A, b, c, feas_tol: float) -> None:
+def _validate(state, A, b, c, feas_tol: float, shard=None) -> None:
     """The shared BFS invariant check, on host copies of the state."""
+    fields = state_to_numpy(state)
+    if shard is not None:  # the full width of every column-sized array
+        for name in ("in_basis", "gamma", "d"):
+            fields[name] = shard.gather(getattr(state, name)).cpu().numpy()
+        A, c = shard.gather(A), shard.gather(c)
     validate_bfs_state(
-        SimpleNamespace(**state_to_numpy(state)),
+        SimpleNamespace(**fields),
         A.cpu().numpy(), b.cpu().numpy(), c.cpu().numpy(),
         feas_tol=feas_tol,
     )
+
+
+def _host_columns(engine, x) -> np.ndarray:
+    """A column-sized state member on the host, at the full width."""
+    shard = getattr(engine, "shard", None)
+    return (x if shard is None else shard.gather(x)).cpu().numpy()
 
 
 def _run_phase(
@@ -288,7 +331,12 @@ def _run_phase(
                 state = _with_status(state, SINGULAR)
                 break
         if cfg.debug_validate and hasattr(state, "Binv"):
-            _validate(state, A_full, b, c, feas_tol=cfg.feas_tol * 1e4)
+            if cfg.carry == "df32":
+                _validate(state, A_full.hi, b.hi, c.hi,
+                          feas_tol=max(cfg.feas_tol, 1e-5) * 1e4)
+            else:
+                _validate(state, A_full, b, c, feas_tol=cfg.feas_tol * 1e4,
+                          shard=getattr(engine, "shard", None))
         if perturbed:
             state = _jitter(state)  # refactor recomputed xB from the true b
         chunk_exits += 1
@@ -338,7 +386,7 @@ def _drive_out_artificials(
     redundant: List[int] = []
     for r in artificial_rows:
         row = engine.tableau_row(state, A, r)
-        in_basis = state.in_basis.cpu().numpy()
+        in_basis = _host_columns(engine, state.in_basis)
         candidates = np.where(
             (~in_basis[: problem.n_real]) & (np.abs(row[: problem.n_real]) > 1e-7)
         )[0]
@@ -374,16 +422,16 @@ def solve_relaxation(
     ``warm_start_basis`` is a provider-column index per structural row; a
     feasible basis skips phase 1, a dual-feasible one restores primal
     feasibility by dual pivots, anything else cold-starts.
+
+    ``mesh`` (``relp_tpu_torch.parallel.make_mesh``) shards the tableau by
+    column over its "col" axis; call it on every rank of the mesh.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh (column-sharded pricing) is not ported to relp_tpu_torch "
-            "yet: ROADMAP.md Queue 1, 'parallel/sharded.py + parallel/mesh.py'"
-        )
     cfg0 = config or default_config()
     device = torch_device(cfg0)
     if cfg0.backend == "host_sparse" or (
-        cfg0.backend == "auto" and should_use_host_sparse(provider, cfg0, device)
+        cfg0.backend == "auto"
+        and mesh is None
+        and should_use_host_sparse(provider, cfg0, device)
     ):
         # Host scipy code (f64 + exact certification), whichever device the
         # configuration names; "auto" picks it only on the CPU.
@@ -394,13 +442,18 @@ def solve_relaxation(
             result.provider = provider  # type: ignore[attr-defined]
         return result
 
-    result = _solve_relaxation_once(provider, cfg0, warm_start_basis)
+    result = _solve_relaxation_once(provider, cfg0, warm_start_basis, mesh)
     # __post_init__ clamps tolerances in place for f32; escalation restores
     # the requested (pre-clamp) values.
     tol_reset = getattr(cfg0, "requested_tolerances", {})
     if result.status is SolveStatus.NUMERICAL_ERROR:
         ladder = []
-        if cfg0.dtype == "float32" and cfg0.carry == "native" and _f64_is_emulated():
+        if (
+            cfg0.dtype == "float32"
+            and cfg0.carry == "native"
+            and mesh is None
+            and _f64_is_emulated()
+        ):
             ladder.append(
                 dataclasses.replace(
                     cfg0, carry="df32",
@@ -429,7 +482,7 @@ def solve_relaxation(
         for retry_cfg in ladder:
             applied.append("df32" if retry_cfg.carry == "df32" else retry_cfg.dtype)
             _log.info("escalation (numerical error): entering rung %s", applied[-1])
-            result = _solve_relaxation_once(provider, retry_cfg, warm_start_basis)
+            result = _solve_relaxation_once(provider, retry_cfg, warm_start_basis, mesh)
             result.stats.escalations = list(applied)
             _log.info(
                 "rung %s: status=%s certified=%s iters=%d", applied[-1],
@@ -456,7 +509,7 @@ def solve_relaxation(
         # The f32 path found something uncertifiable: re-solve at f64,
         # warm-started from the best basis so far.
         ladder = []
-        if cfg0.carry == "native" and _f64_is_emulated():
+        if cfg0.carry == "native" and mesh is None and _f64_is_emulated():
             ladder.append(dataclasses.replace(cfg0, carry="df32", **tol_reset))
         ladder.append(
             dataclasses.replace(cfg0, dtype="float64", carry="native", **tol_reset)
@@ -481,7 +534,7 @@ def solve_relaxation(
                 )
             ):
                 warm = result.basis
-            result = _solve_relaxation_once(provider, retry_cfg, warm)
+            result = _solve_relaxation_once(provider, retry_cfg, warm, mesh)
             result.stats.escalations = list(applied)
             _log.info(
                 "rung %s: status=%s certified=%s iters=%d", applied[-1],
@@ -524,18 +577,35 @@ def _solve_relaxation_once(
     provider: MatrixProvider,
     config: Optional[SolverConfig] = None,
     warm_start_basis: Optional[List[int]] = None,
+    mesh=None,
 ) -> OptimizationResult:
     cfg = config or default_config()
     device = torch_device(cfg)
+    if mesh is not None and cfg.carry == "df32":
+        raise ValueError("carry='df32' is a single-device rescue path")
+    if mesh is not None and cfg.basis_inverse == "lu":
+        raise NotImplementedError(
+            "basis_inverse='lu' does not run column-sharded: ROADMAP.md "
+            "Queue 1, 'LUEngine under a mesh'"
+        )
     engine = make_engine(cfg, device)
     stats = SolveStats()
     t_start = time.time()
-    dtype = _np_dtype(cfg)
+    dtype = _lower_dtype(cfg)
 
     problem = lower_provider(
         provider, dtype=dtype, pad_to=cfg.pad_to, equilibrate=cfg.prescale
     )
-    A, A_scan, b, c1, c2, candidate_mask = _device_arrays(problem, cfg, device)
+
+    def place(problem):
+        # With a mesh, the engine's column shard follows each lowering's N.
+        if mesh is not None:
+            from relp_tpu_torch.parallel.sharded import column_shard
+
+            engine.shard = column_shard(mesh, problem.N, device)
+        return _device_arrays(problem, cfg, device, getattr(engine, "shard", None))
+
+    A, A_scan, b, c1, c2, candidate_mask = place(problem)
 
     warm_started = False
     cold_basis = problem.initial_basis.copy()
@@ -554,7 +624,12 @@ def _solve_relaxation_once(
         basis_ok = np.isfinite(residual) and residual < 1e-4
         if basis_ok and float(xB.min()) > -1e-7:
             warm_started = True
-        elif basis_ok and cfg.dual_restart and hasattr(engine, "dual_run_chunk"):
+        elif (
+            basis_ok
+            and cfg.dual_restart
+            and mesh is None
+            and hasattr(engine, "dual_run_chunk")
+        ):
             # Primal infeasible warm basis (the rhs changed since it was
             # optimal): if still dual feasible, dual pivots restore primal
             # feasibility with no phase 1.
@@ -639,7 +714,7 @@ def _solve_relaxation_once(
                 if j < problem.n_real:
                     new_basis[new_i] = j
             problem.initial_basis = new_basis
-            A, A_scan, b, c1, c2, candidate_mask = _device_arrays(problem, cfg, device)
+            A, A_scan, b, c1, c2, candidate_mask = place(problem)
             state = engine.init_state(problem, cfg)
 
         # Phase transition: real costs, fresh factorization.
@@ -678,6 +753,10 @@ def _solve_relaxation_once(
     # --- extract the BFS over provider columns ---
     basis_np = state.basis.cpu().numpy()
     xB_np = state.xB.to(torch.float64).cpu().numpy()
+    obj_val = float(state.obj)
+    if hasattr(state, "xB_lo"):  # df32 carry: collapse the hi+lo pairs
+        xB_np = xB_np + state.xB_lo.to(torch.float64).cpu().numpy()
+        obj_val += float(state.obj_lo)
     entries = []
     structural_basis: List[int] = []
     for i in range(problem.m_real):
@@ -692,7 +771,7 @@ def _solve_relaxation_once(
     result = OptimizationResult(
         status=SolveStatus.FINITE_OPTIMUM,
         bfs=None,
-        objective=float(state.obj),
+        objective=obj_val,
         basis=structural_basis,
         stats=stats,
     )

@@ -4,9 +4,8 @@
   updates (the fast path).
 * :class:`LUEngine`: f32 LU factors + eta ring (``simplex/lu.py``), the
   robustness and cross-check backend, ``basis_inverse="lu"``.
-
-The double-float ``DoubleFloatEngine`` is ROADMAP work; ``make_engine``
-raises for it rather than quietly using the dense engine.
+* :class:`DoubleFloatEngine`: the double-float (two-f32) carry of
+  ``simplex/df_kernels.py``, ``carry="df32"``.
 """
 
 from __future__ import annotations
@@ -57,10 +56,22 @@ class DenseEngine:
     # (route to host f64); below it, it is the f32 floor of the basis.
     _floor_cap = 1e-3
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, shard=None):
         self.device = device
+        # A ``parallel.sharded.ColumnShard`` when the tableau is sharded by
+        # column over a mesh (set by the driver for each lowering).
+        self.shard = shard
 
     def init_state(self, problem: DeviceProblem, cfg: SolverConfig) -> SimplexState:
+        state = self._init_state(problem, cfg)
+        if self.shard is None:
+            return state
+        take = self.shard.take
+        return state._replace(
+            in_basis=take(state.in_basis), gamma=take(state.gamma), d=take(state.d)
+        )
+
+    def _init_state(self, problem: DeviceProblem, cfg: SolverConfig) -> SimplexState:
         dtype = working_dtype(cfg)
         dev = self.device
         M, N = problem.M, problem.N
@@ -97,8 +108,9 @@ class DenseEngine:
         """Refresh the carried inverse: Newton refresh, then the f64 carry
         health second opinion, then a fresh refactorization, then host
         LAPACK in f64.  Returns (state, residual)."""
+        shard = self.shard
         Binv, xB, pi, obj, residual = kernels.newton_refresh(
-            state.Binv, A, b, c, state.basis, steps=2
+            state.Binv, A, b, c, state.basis, steps=2, shard=shard
         )
         res = float(residual)
         if np.isfinite(res) and res <= self._accept_tol(A, cfg):
@@ -120,9 +132,8 @@ class DenseEngine:
             return state._replace(Binv=Binv, xB=xB, pi=pi, obj=obj), health_r
 
         newton = 3 if cfg.dtype == "float64" else 1
-        Binv, xB, pi, obj, residual = kernels.refactorize(
-            A, b, c, state.basis, newton_steps=newton
-        )
+        Bm, cB_dev = kernels.basis_columns(A, c, state.basis, shard)
+        Binv, xB, pi, obj, residual = kernels._newton_from(Bm, cB_dev, b, newton)
         stats.refactorizations += 1
         res = float(residual)
         if not np.isfinite(res) or res > self._accept_tol(A, cfg):
@@ -143,16 +154,14 @@ class DenseEngine:
                 "refactor: device refactorize rejected (res %.3e, health "
                 "%s), host LAPACK fallback at m=%d", res, health_f, A.shape[0],
             )
-            basis_t = state.basis.to(torch.int64)
-            basis = basis_t.cpu().numpy()
-            B = A.index_select(1, basis_t).to(torch.float64).cpu().numpy()
+            B = Bm.to(torch.float64).cpu().numpy()
             try:
                 Binv_h = np.linalg.inv(B)
             except np.linalg.LinAlgError:
                 return state, float("inf")
             res = float(np.max(np.abs(B @ Binv_h - np.eye(B.shape[0]))))
             b_h = b.to(torch.float64).cpu().numpy()
-            cB = c.to(torch.float64).cpu().numpy()[basis]
+            cB = cB_dev.to(torch.float64).cpu().numpy()
             xB_h = Binv_h @ b_h
             to_dev = lambda x: torch.as_tensor(x, device=A.device).to(A.dtype)  # noqa: E731
             Binv = to_dev(Binv_h)
@@ -162,13 +171,12 @@ class DenseEngine:
         xB = self._clean_xB(xB, cfg)
         return state._replace(Binv=Binv, xB=xB, pi=pi, obj=obj), res
 
-    @staticmethod
-    def _carry_health(Binv, A, b, c, basis, xB, pi, cfg) -> Optional[float]:
+    def _carry_health(self, Binv, A, b, c, basis, xB, pi, cfg) -> Optional[float]:
         """f64 matvec health of a refreshed f32 carry (None for an f64
         carry, whose residual is already measured in f64)."""
         if cfg.dtype != "float32":
             return None
-        return float(kernels.carry_health(Binv, A, b, c, basis, xB, pi))
+        return float(kernels.carry_health(Binv, A, b, c, basis, xB, pi, self.shard))
 
     @staticmethod
     def _accept_tol(A, cfg: SolverConfig) -> float:
@@ -196,9 +204,15 @@ class DenseEngine:
             degen_tol=cfg.feas_tol,
             stop_at_zero=stop_at_zero,
             noisy_scan=kernels.noisy_f32_matmul(),
+            shard=self.shard,
         )
 
     def dual_run_chunk(self, state, A_scan, A_full, c, candidate_mask, cfg):
+        if self.shard is not None:
+            raise NotImplementedError(
+                "the dual simplex does not run column-sharded (the JAX "
+                "package turns the dual warm restart off under a mesh)"
+            )
         return kernels.dual_run_chunk(
             state,
             A_scan,
@@ -218,10 +232,10 @@ class DenseEngine:
         )
 
     def tableau_row(self, state, A, r: int) -> np.ndarray:
-        return kernels.tableau_row(state.Binv, A, r).cpu().numpy()
+        return kernels.tableau_row(state.Binv, A, r, self.shard).cpu().numpy()
 
     def forced_pivot(self, state, A, c, q: int, r: int):
-        return kernels.forced_pivot(state, A, c, q, r)
+        return kernels.forced_pivot(state, A, c, q, r, self.shard)
 
 
 class LUEngine:
@@ -338,12 +352,92 @@ def _lu_forced_pivot(state, A, c, q: int, r: int):
     )
 
 
+class DoubleFloatEngine:
+    """Double-float (two-f32) carry: B^-1, x_B and pi as hi+lo pairs with
+    compensated updates (``simplex/df_kernels``), f64-grade drift from f32
+    operations.  The problem arrives as DfMatrix/DfVec pairs (the driver
+    lowers in f64 and splits); the scans read the hi part."""
+
+    name = "df32"
+
+    def __init__(self, device: torch.device):
+        self.device = device
+
+    def init_state(self, problem: DeviceProblem, cfg: SolverConfig):
+        from relp_tpu_torch.ops.df32 import df_from_f64
+        from relp_tpu_torch.simplex.df_kernels import DfSimplexState
+
+        dev = self.device
+        M, N = problem.M, problem.N
+        basis = problem.initial_basis
+        in_basis = np.zeros(N, dtype=bool)
+        in_basis[basis] = True
+        b64 = np.asarray(problem.b, dtype=np.float64)
+        cB = np.asarray(problem.c_phase1, dtype=np.float64)[basis]
+        xh, xl = df_from_f64(b64, dev)  # the initial basis matrix is I
+        pih, pil = df_from_f64(cB.copy(), dev)
+        oh, ol = df_from_f64(np.float64(cB @ b64), dev)
+        zero = _scalar(0, torch.int32, dev)
+        return DfSimplexState(
+            Binv=torch.eye(M, dtype=torch.float32, device=dev),
+            Binv_lo=torch.zeros((M, M), dtype=torch.float32, device=dev),
+            basis=torch.as_tensor(np.asarray(basis, dtype=np.int32), device=dev),
+            xB=xh, xB_lo=xl, pi=pih, pi_lo=pil, obj=oh, obj_lo=ol,
+            in_basis=torch.as_tensor(in_basis, device=dev),
+            gamma=torch.ones(N, dtype=torch.float32, device=dev),
+            iteration=zero,
+            status=_scalar(RUNNING, torch.int32, dev),
+            degen_count=zero, inner=zero, price_start=zero,
+            d=torch.zeros(N, dtype=torch.float32, device=dev),
+        )
+
+    def refactor(self, state, A, b, c, cfg: SolverConfig, stats: SolveStats):
+        from relp_tpu_torch.simplex.df_kernels import df_refactorize
+
+        state, res = df_refactorize(state, A, b, c, cfg.feas_tol)
+        stats.refactorizations += 1
+        return state, res
+
+    @staticmethod
+    def _scan_of(A):
+        from relp_tpu_torch.simplex.df_kernels import DfMatrix
+
+        return A.hi if isinstance(A, DfMatrix) else A
+
+    def run_chunk(
+        self, state, A_scan, A_full, c, candidate_mask, mode, cfg,
+        stop_at_zero=False,
+    ):
+        from relp_tpu_torch.simplex.df_kernels import df_run_chunk
+
+        return df_run_chunk(
+            state, self._scan_of(A_scan), A_full.hi, A_full.lo, c.hi, c.lo,
+            candidate_mask, pricing=mode, chunk=cfg.chunk_size,
+            opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol, degen_tol=cfg.feas_tol,
+            stop_at_zero=stop_at_zero, noisy_scan=kernels.noisy_f32_matmul(),
+        )
+
+    def recompute_gamma(self, state, A_scan):
+        return state._replace(
+            gamma=kernels.recompute_gamma(
+                state.Binv, self._scan_of(A_scan), state.in_basis
+            )
+        )
+
+    def tableau_row(self, state, A, r: int) -> np.ndarray:
+        from relp_tpu_torch.simplex.df_kernels import df_tableau_row
+
+        return df_tableau_row(state, A, r).cpu().numpy()
+
+    def forced_pivot(self, state, A, c, q: int, r: int):
+        from relp_tpu_torch.simplex.df_kernels import df_forced_pivot
+
+        return df_forced_pivot(state, A, c, q, r)
+
+
 def make_engine(cfg: SolverConfig, device: torch.device):
     if cfg.carry == "df32":
-        raise NotImplementedError(
-            "carry='df32' (DoubleFloatEngine) is not ported to relp_tpu_torch "
-            "yet: ROADMAP.md Queue 1, 'ops/df32.py + simplex/df_kernels.py'"
-        )
+        return DoubleFloatEngine(device)
     if cfg.basis_inverse == "lu":
         return LUEngine(device)
     return DenseEngine(device)

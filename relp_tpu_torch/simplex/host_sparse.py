@@ -700,6 +700,6 @@ def should_use_host_sparse(provider: MatrixProvider, cfg: SolverConfig, device) 
         return False
     try:
         nnz = sum(len(provider.column(j).entries()) for j in range(n))
-    except (AttributeError, NotImplementedError):  # columns without entries()
+    except Exception:  # noqa: BLE001 — unknown providers: stay on device
         return False
     return nnz / (m * n) < 0.02

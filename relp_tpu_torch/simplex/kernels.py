@@ -23,6 +23,11 @@ Differences from the JAX code, and why:
 * Matmuls are true f32 or f64 (TF32 is off, see config.torch_device), so
   ``noisy_f32_matmul()`` is False and the noise guards stay dormant unless
   the scan dtype is lower than the working dtype.
+* Column sharding (``shard``, a ``relp_tpu_torch.parallel.sharded.
+  ColumnShard``) is explicit: the JAX package lets GSPMD partition the same
+  code.  With a shard, A, c, the mask and the N-sized state hold this
+  rank's columns, indices stay global, and the entering choice, the
+  entering column and B at refactorization are combined across ranks.
 """
 
 from __future__ import annotations
@@ -72,9 +77,15 @@ def _status(*pairs, default: int) -> torch.Tensor:
     return out.to(torch.int32)
 
 
-def _select_entering(d, gamma, eligible, pricing: int, N: int, start=None):
-    """Entering-column choice; returns (q, any_eligible), q int64."""
+def _select_entering(d, gamma, eligible, pricing: int, N: int, start=None,
+                     shard=None):
+    """Entering-column choice; returns (q, any_eligible), q int64 (global
+    with a shard, N then being the global width)."""
     any_eligible = eligible.any()
+    if shard is not None:
+        return _select_entering_sharded(
+            d, gamma, eligible, any_eligible, pricing, N, start, shard
+        )
     if pricing == PRICE_DANTZIG:
         q = torch.argmax(torch.where(eligible, -d, float("-inf")))
     elif pricing == PRICE_STEEPEST:
@@ -87,6 +98,31 @@ def _select_entering(d, gamma, eligible, pricing: int, N: int, start=None):
         idx = torch.arange(N, device=d.device)
         q = torch.clamp_max(torch.where(eligible, idx, N).min(), N - 1)
     return q, any_eligible
+
+
+def _select_entering_sharded(d, gamma, eligible, any_eligible, pricing, N,
+                             start, shard):
+    """``_select_entering`` over column shards: every rank's best key at
+    its first local maximum, combined by ``shard.best`` (highest key, then
+    lowest global index).  The smallest-index rules take the negated
+    (rotated) distance as key, with the global N."""
+    ids = shard.ids
+    if pricing == PRICE_DANTZIG:
+        key = torch.where(eligible, -d, float("-inf"))
+    elif pricing == PRICE_STEEPEST:
+        key = torch.where(eligible, d * d / gamma, float("-inf"))
+    elif pricing == PRICE_FIRST_MEMORY and start is not None:
+        key = -torch.where(eligible, (ids - start) % N, N)
+    else:
+        key = -torch.where(eligible, ids, N)
+    loc = torch.argmax(key)
+    q, any_all, top = shard.best(_at(key, loc), loc, any_eligible)
+    if pricing not in (PRICE_DANTZIG, PRICE_STEEPEST) and not (
+        pricing == PRICE_FIRST_MEMORY and start is not None
+    ):
+        # min(eligible index, N) clamped: N - 1 when nothing is eligible.
+        q = torch.clamp_max((-top).to(torch.int64), N - 1)
+    return q, any_all
 
 
 def _select_leaving(xB, w, basis, pricing: int, pivot_tol: float):
@@ -115,9 +151,11 @@ def _select_leaving(xB, w, basis, pricing: int, pivot_tol: float):
 def _iteration(
     state: SimplexState, A_scan, A_full, c, c_scan, candidate_mask,
     active: Optional[torch.Tensor], *, pricing: int, opt_tol: float,
-    pivot_tol: float, degen_tol: float, noisy_scan: bool,
+    pivot_tol: float, degen_tol: float, noisy_scan: bool, shard=None,
 ) -> SimplexState:
     M, N = A_scan.shape
+    if shard is not None:
+        N = shard.N
     scan_dtype = A_scan.dtype
     low_precision_scan = scan_dtype != A_full.dtype
     noisy = noisy_scan and not low_precision_scan and scan_dtype == torch.float32
@@ -143,13 +181,17 @@ def _iteration(
     eligible = candidate_mask & ~state.in_basis & (d < -threshold)
     gamma = state.gamma.to(scan_dtype)
     q, any_eligible = _select_entering(
-        d, gamma, eligible, pricing, N, start=state.price_start
+        d, gamma, eligible, pricing, N, start=state.price_start, shard=shard
     )
 
     # --- FTRAN at working precision ---
-    a_q = A_full.index_select(1, q.reshape(1)).reshape(M)
+    if shard is None:
+        a_q = A_full.index_select(1, q.reshape(1)).reshape(M)
+        c_q = _at(c, q)
+    else:  # from the owner; c_B too, for the objective below
+        a_q, c_q, cB = shard.fetch(A_full, c, q, state.basis)
     w = torch.matmul(state.Binv, a_q)
-    d_q_full = _at(c, q) - torch.matmul(state.pi, a_q)
+    d_q_full = c_q - torch.matmul(state.pi, a_q)
     if guarded:
         # Scan noise cannot fabricate candidates: recheck the pick.
         any_eligible = any_eligible & (d_q_full < -opt_tol)
@@ -178,15 +220,21 @@ def _iteration(
 
     leaving = _at(state.basis, r).to(torch.int64).reshape(1)
     basis_new = state.basis.clone().index_copy_(0, r1, q1.to(torch.int32))
-    in_basis_new = (
-        state.in_basis.clone().index_fill_(0, leaving, False).index_fill_(0, q1, True)
-    )
+    if shard is None:
+        in_basis_new = (
+            state.in_basis.clone().index_fill_(0, leaving, False)
+            .index_fill_(0, q1, True)
+        )
+        cB_new = c.index_select(0, basis_new.to(torch.int64))
+    else:
+        in_basis_new = shard.put(shard.put(state.in_basis, leaving, False), q, True)
+        cB_new = cB.clone().index_copy_(0, r1, c_q.reshape(1))
 
     # Incremental dual update pi' = pi + d_q rho_r; the objective is
     # recomputed as cB @ xB (the incremental form is wrong whenever the
     # Harris clamp zeroes a tolerance-negative leaving value).
     pi_new = state.pi + d_q_full * Binv_r
-    obj_new = torch.matmul(c.index_select(0, basis_new.to(torch.int64)), xB_new)
+    obj_new = torch.matmul(cB_new, xB_new)
 
     # --- one fused pass over A_scan: next reduced costs and, for steepest
     # edge, the Goldfarb weights ---
@@ -197,14 +245,14 @@ def _iteration(
             [pi_new.to(scan_dtype), v, _at(Binv_new, r).to(scan_dtype)]
         )
         d_next, gamma_new = fused_price_scan(P, A_scan, c_scan, gamma, gamma_q_val)
-        gamma_new.index_copy_(
-            0,
-            leaving,
-            torch.clamp_min(
-                gamma_q_val / (safe_w_r * safe_w_r).to(scan_dtype), 1.0
-            ).reshape(1),
+        g_leaving = torch.clamp_min(
+            gamma_q_val / (safe_w_r * safe_w_r).to(scan_dtype), 1.0
         )
-        gamma_new.index_fill_(0, q1, 1.0)
+        if shard is None:
+            gamma_new.index_copy_(0, leaving, g_leaving.reshape(1))
+            gamma_new.index_fill_(0, q1, 1.0)
+        else:  # on the columns' owners
+            gamma_new = shard.put(shard.put(gamma_new, leaving, g_leaving), q, 1.0)
         gamma_new = gamma_new.to(state.gamma.dtype)
     else:
         gamma_new = state.gamma
@@ -252,11 +300,11 @@ def make_iteration(
     builds it.  The port's scans are always full precision, so the JAX
     package's ``hi_scan`` polish mode has no counterpart."""
 
-    def iteration(state, A_scan, A_full, c, c_scan, candidate_mask):
+    def iteration(state, A_scan, A_full, c, c_scan, candidate_mask, shard=None):
         return _iteration(
             state, A_scan, A_full, c, c_scan, candidate_mask, None,
             pricing=pricing, opt_tol=opt_tol, pivot_tol=pivot_tol,
-            degen_tol=degen_tol, noisy_scan=noisy_scan,
+            degen_tol=degen_tol, noisy_scan=noisy_scan, shard=shard,
         )
 
     return iteration
@@ -287,12 +335,16 @@ def run_chunk(
     degen_tol: float,
     stop_at_zero: bool = False,
     noisy_scan: bool = False,
+    shard=None,
 ) -> SimplexState:
     """Run up to ``chunk`` pivots with no host read on CUDA.
 
     ``A_scan`` may be a lower-precision copy of ``A_full``; pass the same
     tensor twice for full precision.  ``stop_at_zero`` ends the walk once
-    the objective is (near) zero: the phase-1 termination rule.
+    the objective is (near) zero: the phase-1 termination rule.  With a
+    ``shard`` the column-sized inputs are this rank's block (see
+    ``relp_tpu_torch.parallel.sharded``); the replicated state makes every
+    rank take the same branches.
     """
     state, c_scan = _chunk_entry(state, A_scan, c)
     on_cpu = A_scan.device.type == "cpu"
@@ -305,7 +357,7 @@ def run_chunk(
         state = _iteration(
             state, A_scan, A_full, c, c_scan, candidate_mask, active,
             pricing=pricing, opt_tol=opt_tol, pivot_tol=pivot_tol,
-            degen_tol=degen_tol, noisy_scan=noisy_scan,
+            degen_tol=degen_tol, noisy_scan=noisy_scan, shard=shard,
         )
     return state
 
@@ -443,7 +495,16 @@ def dual_run_chunk(
     return state
 
 
-def _newton(B, X, b, c, basis, steps: int):
+def basis_columns(A, c, basis, shard=None):
+    """(B, c_B): the basis's columns of A and entries of c (exact; from
+    their owners with a shard)."""
+    if shard is not None:
+        return shard.basis_columns(A, c, basis)
+    basis64 = basis.to(torch.int64)
+    return A.index_select(1, basis64), c.index_select(0, basis64)
+
+
+def _newton(B, X, b, cB, steps: int):
     """Newton-Schulz steps X <- X (2I - B X), then (X, xB, pi, obj,
     max|B X - I|)."""
     eye = torch.eye(B.shape[0], dtype=B.dtype, device=B.device)
@@ -451,27 +512,31 @@ def _newton(B, X, b, c, basis, steps: int):
         X = torch.matmul(X, 2.0 * eye - torch.matmul(B, X))
     residual = (torch.matmul(B, X) - eye).abs().max()
     xB = torch.matmul(X, b)
-    cB = c.index_select(0, basis.to(torch.int64))
     pi = torch.matmul(cB, X)
     obj = torch.matmul(cB, xB)
     return X, xB, pi, obj, residual
 
 
-def refactorize(A, b, c, basis, *, newton_steps: int = 3):
+def _newton_from(B, cB, b, newton_steps: int):
+    """``refactorize`` from the gathered (B, c_B)."""
+    X = torch.linalg.inv_ex(B.to(torch.float32)).inverse.to(B.dtype)
+    return _newton(B, X, b, cB, newton_steps)
+
+
+def refactorize(A, b, c, basis, *, newton_steps: int = 3, shard=None):
     """Recompute the basis inverse: f32 inverse of B = A[:, basis], refined
     by Newton-Schulz in the working dtype.  Returns (Binv, xB, pi, obj,
     residual) with residual = max|B Binv - I|; a singular B gives a
     non-finite residual (``inv_ex`` does not raise)."""
-    B = A.index_select(1, basis.to(torch.int64))
-    X = torch.linalg.inv_ex(B.to(torch.float32)).inverse.to(A.dtype)
-    return _newton(B, X, b, c, basis, newton_steps)
+    B, cB = basis_columns(A, c, basis, shard)
+    return _newton_from(B, cB, b, newton_steps)
 
 
-def newton_refresh(Binv, A, b, c, basis, *, steps: int = 2):
+def newton_refresh(Binv, A, b, c, basis, *, steps: int = 2, shard=None):
     """Refresh the carried inverse by Newton-Schulz steps from itself;
     returns (Binv, xB, pi, obj, residual) like ``refactorize``."""
-    B = A.index_select(1, basis.to(torch.int64))
-    return _newton(B, Binv, b, c, basis, steps)
+    B, cB = basis_columns(A, c, basis, shard)
+    return _newton(B, Binv, b, cB, steps)
 
 
 def rademacher_probes(M: int, k: int, device) -> torch.Tensor:
@@ -485,18 +550,18 @@ def rademacher_probes(M: int, k: int, device) -> torch.Tensor:
     return torch.where(bit, 1.0, -1.0).to(torch.float64)
 
 
-def carry_health(Binv, A, b, c, basis, xB, pi):
+def carry_health(Binv, A, b, c, basis, xB, pi, shard=None):
     """f64 carry-health residual: the max of the relative residuals along
     b (feasibility), cB (duals) and four Rademacher probes."""
     f64 = torch.float64
     M = Binv.shape[0]
-    basis64 = basis.to(torch.int64)
-    B = A.index_select(1, basis64).to(f64)
+    B, cB = basis_columns(A, c, basis, shard)
+    B = B.to(f64)
     b64 = b.to(f64)
     feas = (torch.matmul(B, xB.to(f64)) - b64).abs().max() / (
         1.0 + b64.abs().max()
     )
-    cB64 = c.index_select(0, basis64).to(f64)
+    cB64 = cB.to(f64)
     dual = (torch.matmul(pi.to(f64), B) - cB64).abs().max() / (
         1.0 + cB64.abs().max()
     )
@@ -514,20 +579,25 @@ def recompute_gamma(Binv, A_scan, in_basis):
     return torch.where(in_basis, 1.0, gamma).to(Binv.dtype)
 
 
-def tableau_row(Binv, A, r: int):
-    """Row r of the current tableau, Binv[r] @ A."""
-    return torch.matmul(Binv[r], A)
+def tableau_row(Binv, A, r: int, shard=None):
+    """Row r of the current tableau, Binv[r] @ A (gathered to the full
+    width with a shard)."""
+    row = torch.matmul(Binv[r], A)
+    return row if shard is None else shard.gather(row)
 
 
 def reduced_costs(pi, A, c):
     return c - torch.matmul(pi, A)
 
 
-def forced_pivot(state: SimplexState, A, c, q: int, r: int) -> SimplexState:
+def forced_pivot(state: SimplexState, A, c, q: int, r: int, shard=None) -> SimplexState:
     """Pivot column q in at row r unconditionally (zero-level pivots while
-    driving artificials out).  q and r are host ints."""
-    M = A.shape[0]
-    a_q = A[:, q]
+    driving artificials out).  q and r are host ints (q global)."""
+    if shard is None:
+        a_q = A[:, q]
+    else:
+        q_t = torch.tensor(q, device=A.device)
+        a_q, c_q, cB = shard.fetch(A, c, q_t, state.basis)
     w = torch.matmul(state.Binv, a_q)
     w_r = w[r]
     t = state.xB[r] / w_r
@@ -539,9 +609,14 @@ def forced_pivot(state: SimplexState, A, c, q: int, r: int) -> SimplexState:
     leaving = state.basis[r].to(torch.int64).reshape(1)
     basis_new = state.basis.clone()
     basis_new[r] = q
-    in_basis_new = state.in_basis.clone().index_fill_(0, leaving, False)
-    in_basis_new[q] = True
-    cB = c.index_select(0, basis_new.to(torch.int64))
+    if shard is None:
+        in_basis_new = state.in_basis.clone().index_fill_(0, leaving, False)
+        in_basis_new[q] = True
+        cB = c.index_select(0, basis_new.to(torch.int64))
+    else:
+        in_basis_new = shard.put(shard.put(state.in_basis, leaving, False), q_t, True)
+        cB = cB.clone()
+        cB[r] = c_q
     return state._replace(
         Binv=Binv_new,
         basis=basis_new,

@@ -496,8 +496,20 @@ def test_solve_batch_takes_the_kernel_path_by_default(monkeypatch):
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        solve_batch([PORT.parallel_provider(6)], _cfg(False), mesh=object())
+    """A mesh that does not hold the world raises ValueError; a world of one
+    (gloo, in this process) solves the batch as the unsharded port does."""
+    from relp_tpu_torch.parallel import make_mesh
+    from tests.test_torch_mesh import world_of_one
+
+    providers = lambda: [PORT.parallel_provider(b2) for b2 in (6, 7)]  # noqa: E731
+    plain = solve_batch(providers(), _cfg(False))
+    with world_of_one() as mesh:
+        with pytest.raises(ValueError):
+            make_mesh((1, 2))
+        sharded = solve_batch(providers(), _cfg(False), mesh=mesh)
+    for rp, rs in zip(plain, sharded):
+        assert (rs.status, rs.exact_objective, rs.basis, rs.stats.iterations) == (
+            rp.status, rp.exact_objective, rp.basis, rp.stats.iterations)
 
 
 def test_pallas_batch_on_a_shape_no_kernel_takes_runs_the_torch_path(caplog):

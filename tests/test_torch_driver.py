@@ -175,21 +175,28 @@ def test_cuda_is_never_a_silent_fallback():
 
 @pytest.mark.parametrize(
     "overrides, match",
-    [(dict(carry="df32"), "DoubleFloatEngine")],
+    [(dict(basis_inverse="lu"), "LUEngine under a mesh")],
 )
 def test_unported_options_raise(overrides, match):
+    """What the port still refuses: the LU engine under a mesh (ROADMAP
+    Queue 1).  carry="df32" is ported (tests/test_torch_df32.py); the
+    refusal comes before the mesh is used."""
+    gf = SIMPLEX_SMALL["basic_max_lp"][0](PORT)
+    data = gf.derive_matrix_data(gf.standardize())
     with pytest.raises(NotImplementedError, match=match):
-        solve_general_form(
-            SIMPLEX_SMALL["basic_max_lp"][0](PORT),
-            SolverConfig(pad_to=8, platform="cpu", presolve=False, **overrides),
+        solve_relaxation(
+            data, SolverConfig(pad_to=8, platform="cpu", **overrides), mesh=object()
         )
 
 
 def test_mesh_raises():
+    """carry="df32" under a mesh raises ValueError, as in the JAX package
+    (a single-device rescue path), before the mesh is used."""
     gf = SIMPLEX_SMALL["basic_max_lp"][0](PORT)
     data = gf.derive_matrix_data(gf.standardize())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        solve_relaxation(data, SolverConfig(pad_to=8, platform="cpu"), mesh=object())
+    with pytest.raises(ValueError, match="single-device"):
+        solve_relaxation(data, SolverConfig(pad_to=8, platform="cpu", carry="df32"),
+                         mesh=object())
 
 
 def test_warm_start_and_dual_restart_match_jax():

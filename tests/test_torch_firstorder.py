@@ -127,13 +127,28 @@ def test_pdhg_runs_on_cuda_by_default():
 
 
 def test_mesh_raises():
+    """A mesh that does not hold the world raises ValueError; a world of one
+    (gloo, in this process) runs pdhg_solve and solve_first_order as the
+    unsharded port does."""
+    from relp_tpu_torch.parallel import make_mesh
+    from tests.test_torch_mesh import world_of_one
+
     A, b, c, u = PDHG_CASES["tiny"]
-    with pytest.raises(NotImplementedError, match="mesh"):
-        pdhg.pdhg_solve(A, b, c, u, device="cpu", mesh=object())
     gf = SIMPLEX_SMALL["basic_max_lp"][0](PORT)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        solve_first_order(gf.derive_matrix_data(gf.standardize()),
-                          SolverConfig(platform="cpu"), mesh=object())
+    data = gf.derive_matrix_data(gf.standardize())
+    cfg = SolverConfig(platform="cpu", dtype="float64")
+    x0, y0, s0 = pdhg.pdhg_solve(A, b, c, u, device="cpu", dtype=np.float64)
+    plain = solve_first_order(data, cfg)
+    with world_of_one() as mesh:
+        with pytest.raises(ValueError):
+            make_mesh((2, 1))
+        x1, y1, s1 = pdhg.pdhg_solve(A, b, c, u, device="cpu", dtype=np.float64,
+                                     mesh=mesh)
+        sharded = solve_first_order(data, cfg, mesh=mesh)
+    assert s1.iterations == s0.iterations and s1.converged == s0.converged
+    assert _close(x1, x0, 1e-9) and _close(y1, y0, 1e-9)
+    assert sharded.exact_objective == plain.exact_objective
+    assert sharded.stats.certified
 
 
 def _provider(p, case):
@@ -221,3 +236,37 @@ def test_auto_routes_to_host_sparse_only_on_the_cpu():
     assert not should_use_host_sparse(huge_sparse, cfg, cuda)
     assert not should_use_host_sparse(_stub_provider(1000, 24_000, 40), cfg, cpu)
     assert not should_use_host_sparse(_stub_provider(100, 2_000, 2), cfg, cpu)
+
+
+class _RaisingProvider:
+    """A 5000 x 5000 provider whose columns raise ValueError; it records
+    every attribute asked of it, so a test can tell that no array was
+    built."""
+
+    def __init__(self):
+        self.asked = []
+
+    def __getattr__(self, name):
+        self.asked.append(name)
+        if name in ("nr_rows", "nr_columns"):
+            return lambda: 5000
+        if name == "column":
+            def column(j):
+                raise ValueError(f"column {j} cannot be read")
+            return column
+        raise AttributeError(name)
+
+
+def test_auto_route_stays_dense_when_columns_raise():
+    """should_use_host_sparse catches any error of an unknown provider, as
+    the JAX package does (``except Exception``): both packages return
+    False, and neither builds an array."""
+    from relp_tpu.config import SolverConfig as JaxCfg
+    from relp_tpu.simplex.host_sparse import should_use_host_sparse as jax_rule
+
+    port_provider, jax_provider = _RaisingProvider(), _RaisingProvider()
+    assert not should_use_host_sparse(
+        port_provider, SolverConfig(platform="cpu"), torch.device("cpu"))
+    assert not jax_rule(jax_provider, JaxCfg())
+    for provider in (port_provider, jax_provider):
+        assert set(provider.asked) == {"nr_rows", "nr_columns", "column"}

@@ -193,3 +193,54 @@ def test_port_sources_never_import_jax():
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
     assert not pattern.search((ROOT / "chip_smoke.py").read_text())
+
+
+DF32_MESH_SCRIPT = r"""
+import json, sys
+
+REFUSED = ("jax", "jaxlib", "relp_tpu")
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in REFUSED:
+            raise ImportError("refused in this process: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import torch.distributed as dist
+from relp_tpu_torch.config import SolverConfig
+from relp_tpu_torch.io import load_general_form
+from relp_tpu_torch.parallel import initialize_multihost, make_mesh
+from relp_tpu_torch.simplex import solve_general_form, solve_relaxation
+
+gf = load_general_form(sys.argv[1])
+df32, solution = solve_general_form(gf, SolverConfig(platform="cpu", carry="df32"))
+initialize_multihost(platform="cpu")
+gf = load_general_form(sys.argv[1])
+gf.presolve()
+sharded = solve_relaxation(gf.derive_matrix_data(gf.standardize()),
+                           SolverConfig(platform="cpu"), mesh=make_mesh((1, 1)))
+dist.destroy_process_group()
+print(json.dumps({
+    "df32": str(solution.objective_value),
+    "mesh": str(sharded.exact_objective),
+    "certified": df32.stats.certified and sharded.stats.certified,
+    "refused_modules": sorted(m for m in sys.modules if m.split(".")[0] in REFUSED),
+}))
+"""
+
+
+def test_df32_carry_and_mesh_run_with_jax_refused():
+    """The df32 carry and a world-of-one mesh (gloo) solve knap6 to the
+    exact -30 with jax, jaxlib and relp_tpu refused."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    for key in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        env.pop(key, None)
+    proc = subprocess.run(
+        [sys.executable, "-c", DF32_MESH_SCRIPT, str(ROOT / "tests" / "data" / "knap6.mps")],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == (
+        '{"df32": "-30", "mesh": "-30", "certified": true, "refused_modules": []}'
+    )
