@@ -87,9 +87,10 @@ just before it (a `launches` line after each):
                    wave to a certified optimum: HiGHS's, an exactly
                    feasible incumbent, the waves in the batch;
  16. first_order/real
-                   solve_first_order on main/real's LP: certified, the
-                   pinned digest; PDHG statistics, crossover pivots (a cold
-                   finish: the crossover basis is refused), wall split;
+                   solve_first_order (PDHG cut at 20,000 iterations) on
+                   the generated LP at testing.MODES_SIZE (m=192, n=768):
+                   certified, its pinned digest; PDHG statistics,
+                   crossover pivots, wall split;
  17. first_order/pdhg
                    pdhg_solve on a 2048 x 8192 LP (f32 A of 67 MB):
                    iterations/s, the device time per iteration of one chunk
@@ -98,9 +99,10 @@ just before it (a `launches` line after each):
                    and its primal residual against the same call's in f64
                    on the CPU (relp_tpu_torch.tools.pdhg_check);
  18. lu/real, lu/profile
-                   main/real's LP on the LU engine: certified, the pinned
-                   digest, ms per pivot; one chunk of it replayed under the
-                   profiler for launches and device-busy time per pivot.
+                   the LP at testing.MODES_SIZE on the LU engine: certified,
+                   its pinned digest, ms per pivot; one chunk of it replayed
+                   under the profiler for launches and device-busy time per
+                   pivot.
  19. df32/real, df32/profile, df32/kernel
                    main/real's LP with the double-float carry
                    (carry="df32"): certified by that rung, the pinned
@@ -116,10 +118,12 @@ just before it (a `launches` line after each):
                    basis, pivots and digest; the resident family through
                    solve_batch(mesh=...) on the batched torch path, its
                    digest; first_order/pdhg's LP through pdhg_solve(mesh=...)
-                   held to the unsharded run; collectives and ms per pivot
-                   of the sharded chunk loop beside the unsharded one; the
-                   scan kernel against its plain version on this path's
-                   inputs.  One card shows the code, not a scale-out.
+                   held to the same call unsharded (4,000 iterations);
+                   collectives and ms per pivot of the sharded chunk loop
+                   beside the unsharded one (also timed before the process
+                   group exists); the scan kernel against its plain version
+                   on this path's inputs.  One card shows the code, not a
+                   scale-out.
 
 Then a JSON line describing each kernel (six: the scan, the two
 batched-pivot kernels and the probe's three) with its time, its plain
@@ -1539,38 +1543,42 @@ def _reconstructed_objective(gf, md, result):
     return gf.compute_full_solution_with_reduced_solution(reduced).objective_value
 
 
+# PDHG's iterations on first_order/real, cut from the default 100,000 (with
+# the LP cut to testing.MODES_SIZE) to keep the script in its time limit.
+_FIRST_ORDER_REAL_ITERS = 20_000
+
+
 def phase_first_order_real(torch):
-    """solve_first_order (PDHG + crossover) on main/real's LP after the same
-    presolve and standardize as the CLI: certified, main/real's pinned
-    digest; the PDHG statistics, the crossover's pivots, the wall split.
-    PDHG stops unconverged, the crossover refuses its basis and the finish
-    is a cold solve: this phase covers that route; mip/small's
-    --first-order covers the warm finish."""
+    """solve_first_order (PDHG + crossover) on the generated LP at
+    testing.MODES_SIZE after the same presolve and standardize as the CLI:
+    certified, its pinned digest; the PDHG statistics, the crossover's
+    pivots (against the cold solve's), the wall split.  mip/small's
+    --first-order covers the warm finish on knap6."""
     from relp_tpu_torch.config import SolverConfig
     from relp_tpu_torch.firstorder import solve_first_order
     from relp_tpu_torch.simplex import SolveStatus
     from relp_tpu_torch.testing import (
-        REAL_SIZE,
-        REAL_SIZE_OBJECTIVE_SHA256,
+        MODES_SIZE,
+        MODES_SIZE_OBJECTIVE_SHA256,
         generated_lp,
     )
 
-    gf = generated_lp(**REAL_SIZE)
+    gf = generated_lp(**MODES_SIZE)
     gf.presolve()
     md = gf.derive_matrix_data(gf.standardize())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    result = solve_first_order(md, SolverConfig())
+    result = solve_first_order(md, SolverConfig(), max_iters=_FIRST_ORDER_REAL_ITERS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     _check(result.status is SolveStatus.FINITE_OPTIMUM and result.stats.certified,
            f"first_order/real: {result.status} certified={result.stats.certified}")
     digest = hashlib.sha256(
         str(_reconstructed_objective(gf, md, result)).encode()).hexdigest()
-    _check(digest == REAL_SIZE_OBJECTIVE_SHA256, f"first_order/real digest {digest}")
+    _check(digest == MODES_SIZE_OBJECTIVE_SHA256, f"first_order/real digest {digest}")
     fo = result.first_order_stats
     _line(
-        "first_order/real", m=REAL_SIZE["m"], n=REAL_SIZE["n"], status=result.status.value,
+        "first_order/real", m=MODES_SIZE["m"], n=MODES_SIZE["n"], status=result.status.value,
         certified=True, digest_ok=True, pdhg_iterations=fo.iterations,
         restarts=fo.restarts, converged=fo.converged,
         primal_residual=f"{fo.primal_residual:.3e}",
@@ -1667,21 +1675,18 @@ def phase_first_order_pdhg(torch, np, device):
         f64_cpu_primal=f"{PDHG_F64_CPU['primal']:.4e}",
         primal_bound=f"{progress:.4e}",
     )
-    A, _b, c, _u = pdhg_check.pdhg_lp(**pdhg_check.PDHG_SIZE)
-    return {"iterations": st.iterations, "objective": float(c @ x), "primal": host[0],
-            "ms_per_iteration": st.wall_time_s / st.iterations * 1e3}
 
 
 def phase_lu_real(torch):
-    """main/real's LP through solve_general_form on the LU engine: certified,
-    the pinned digest; pivots, refactorizations, ms per pivot; then one
+    """The generated LP at testing.MODES_SIZE through solve_general_form on
+    the LU engine: certified, its pinned digest; pivots, refactorizations, ms per pivot; then one
     phase-2 chunk of that solve replayed under the profiler for launches
     and device-busy time per pivot."""
     from relp_tpu_torch.config import SolverConfig
     from relp_tpu_torch.simplex import SolveStatus, engine, solve_general_form
     from relp_tpu_torch.testing import (
-        REAL_SIZE,
-        REAL_SIZE_OBJECTIVE_SHA256,
+        MODES_SIZE,
+        MODES_SIZE_OBJECTIVE_SHA256,
         generated_lp,
     )
 
@@ -1694,14 +1699,14 @@ def phase_lu_real(torch):
     with _keeping_inputs(engine.LUEngine, "run_chunk", kept, when=twentieth):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        result, solution = solve_general_form(generated_lp(**REAL_SIZE),
+        result, solution = solve_general_form(generated_lp(**MODES_SIZE),
                                               SolverConfig(basis_inverse="lu"))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     _check(result.status is SolveStatus.FINITE_OPTIMUM and result.stats.certified,
            f"lu/real: {result.status} certified={result.stats.certified}")
     digest = hashlib.sha256(str(solution.objective_value).encode()).hexdigest()
-    _check(digest == REAL_SIZE_OBJECTIVE_SHA256, f"lu/real digest {digest}")
+    _check(digest == MODES_SIZE_OBJECTIVE_SHA256, f"lu/real digest {digest}")
     _check("run_chunk" in kept, f"lu/real: {len(calls)} chunks, fewer than 20")
     pivots = result.stats.iterations + result.stats.phase1_iterations
     solve_s = result.stats.wall_time_s - result.stats.certify_time_s
@@ -1717,7 +1722,7 @@ def phase_lu_real(torch):
     busy_ms, launches, top = _device_busy(
         torch, lambda: int(run_chunk(self, state, *args, **kwargs).iteration), chunk_pivots)
     _line(
-        "lu/real", m=REAL_SIZE["m"], n=REAL_SIZE["n"], status=result.status.value,
+        "lu/real", m=MODES_SIZE["m"], n=MODES_SIZE["n"], status=result.status.value,
         certified=True, digest_ok=True, pivots=result.stats.iterations,
         phase1_pivots=result.stats.phase1_iterations,
         refactorizations=result.stats.refactorizations, chunks=result.stats.chunks,
@@ -1855,15 +1860,21 @@ def phase_df32_real(torch, np):
     return holds
 
 
-def phase_mesh_world1(torch, np, device, main_result, pdhg_ref):
+# PDHG iterations of mesh/world1's sharded and unsharded runs.
+_MESH_PDHG_ITERS = 4_000
+
+
+def phase_mesh_world1(torch, np, device, main_result):
     """The mesh (relp_tpu_torch.parallel) as a world of one over NCCL: one
     card shows the sharded code and its collectives, not a scale-out.
     initialize_multihost() with no torchrun environment, make_mesh((1, 1));
     main/real through solve_relaxation(mesh=...): main/real's basis, pivots
     and digest; the resident family through solve_batch(mesh=...), which
     takes the batched torch path: every LP certified, the family's digest;
-    first_order/pdhg's LP through pdhg_solve(mesh=...): the iterations of
-    its unsharded run and its progress bound, the objective within 1e-3;
+    first_order/pdhg's LP through pdhg_solve(mesh=...) against the same
+    call unsharded (4,000 iterations each): the same iterations, the
+    objective within 1e-3 and the primal residual within twice the
+    unsharded one;
     collectives and ms per pivot of the sharded chunk loop beside the
     unsharded one at the chunk loop's problem.  The process group is
     destroyed at the end.  Returns the scan kernel's check on the inputs
@@ -1886,7 +1897,6 @@ def phase_mesh_world1(torch, np, device, main_result, pdhg_ref):
     from relp_tpu_torch.testing import (
         FAMILIES,
         FAMILY_OBJECTIVES_SHA256,
-        PDHG_F64_CPU,
         PDHG_SIZE,
         REAL_SIZE,
         REAL_SIZE_OBJECTIVE_SHA256,
@@ -1896,6 +1906,24 @@ def phase_mesh_world1(torch, np, device, main_result, pdhg_ref):
         scenario_family,
     )
     from relp_tpu_torch.tools import pdhg_check
+
+    # The chunk loop's problem, and its unsharded time before the process
+    # group exists (NCCL's threads run beside the host from then on).
+    state0, A_d, c_d, cand_d = _bench_chunk_inputs(torch, np, device)
+    kw = dict(pricing=kernels.PRICE_STEEPEST, opt_tol=1e-7, pivot_tol=1e-7,
+              degen_tol=1e-7)
+
+    def timed(fn):
+        def run(chunk):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pivots = int(fn(chunk).iteration)  # the sync inside the region
+            return time.perf_counter() - t, pivots
+        return run
+
+    unsharded = timed(lambda ch: kernels.run_chunk(state0, A_d, A_d, c_d, cand_d,
+                                                   chunk=ch, **kw))
+    before_group = _marginal_ms_per_pivot(torch, np, {"unsharded": unsharded}, reps=2)
 
     initialize_multihost()
     kept = {}
@@ -1966,54 +1994,43 @@ def phase_mesh_world1(torch, np, device, main_result, pdhg_ref):
             certify_s=f"{sum(r.stats.certify_time_s for r in results):.3f}",
         )
 
-        # first_order/pdhg's LP, rows over "batch" and columns over "col".
+        # first_order/pdhg's LP, rows over "batch" and columns over "col",
+        # against the same call unsharded.
         A, b, c, u = pdhg_lp(**PDHG_SIZE)
-        sharded.COLLECTIVES = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        x, y, st = pdhg.pdhg_solve(A, b, c, u, tol=1e-6, max_iters=pdhg_check.MAX_ITERS,
-                                   dtype=np.float32, device=device, mesh=mesh)
-        wall = time.perf_counter() - t0
         As, bs, cs, us, d_row, d_col = pdhg.scale_problem(A, b, c, u, np.float32)
-        host = pdhg_check.kkt64(As, bs, cs, us, x / d_col, y / d_row)
-        objective = float(c @ x)
-        progress = _PDHG_PROGRESS_FACTOR * PDHG_F64_CPU["primal"]
-        rel = abs(objective - pdhg_ref["objective"]) / (1.0 + abs(pdhg_ref["objective"]))
-        _check(st.iterations == pdhg_ref["iterations"] and host[0] <= progress
-               and rel <= 1e-3,
-               f"mesh/world1 pdhg: {st.iterations} iterations (unsharded "
-               f"{pdhg_ref['iterations']}), primal {host[0]:.3e} (bound "
-               f"{progress:.3e}), objective rel diff {rel:.2e}")
+        found = {}
+        for label, on in (("unsharded", None), ("sharded", mesh)):
+            sharded.COLLECTIVES = 0
+            x, y, st = pdhg.pdhg_solve(A, b, c, u, tol=1e-6, max_iters=_MESH_PDHG_ITERS,
+                                       dtype=np.float32, device=device, mesh=on)
+            found[label] = dict(
+                st=st, collectives=sharded.COLLECTIVES, objective=float(c @ x),
+                primal=pdhg_check.kkt64(As, bs, cs, us, x / d_col, y / d_row)[0])
+        one, ref = found["sharded"], found["unsharded"]
+        rel = abs(one["objective"] - ref["objective"]) / (1.0 + abs(ref["objective"]))
+        _check(one["st"].iterations == ref["st"].iterations and rel <= 1e-3
+               and one["primal"] <= 2.0 * ref["primal"],
+               f"mesh/world1 pdhg: {one['st'].iterations} iterations (unsharded "
+               f"{ref['st'].iterations}), primal {one['primal']:.3e} (unsharded "
+               f"{ref['primal']:.3e}), objective rel diff {rel:.2e}")
+        per_it = {k: v["st"].wall_time_s / v["st"].iterations * 1e3 for k, v in found.items()}
         _line(
             "mesh/world1", problem="first_order/pdhg", m=A.shape[0], n=A.shape[1],
-            iterations=st.iterations, restarts=st.restarts, converged=st.converged,
-            collectives=sharded.COLLECTIVES,
-            collectives_per_iteration=f"{sharded.COLLECTIVES / st.iterations:.3f}",
-            wall_s=f"{wall:.3f}", ms_per_iteration=f"{st.wall_time_s / st.iterations * 1e3:.4f}",
-            unsharded_ms_per_iteration=f"{pdhg_ref['ms_per_iteration']:.4f}",
-            primal_host_f64=f"{host[0]:.4e}", unsharded_primal=f"{pdhg_ref['primal']:.4e}",
+            iterations=one["st"].iterations, restarts=one["st"].restarts,
+            unsharded_restarts=ref["st"].restarts, collectives=one["collectives"],
+            collectives_per_iteration=f"{one['collectives'] / one['st'].iterations:.3f}",
+            ms_per_iteration=f"{per_it['sharded']:.4f}",
+            unsharded_ms_per_iteration=f"{per_it['unsharded']:.4f}",
+            primal_host_f64=f"{one['primal']:.4e}", unsharded_primal=f"{ref['primal']:.4e}",
             objective_rel_diff=f"{rel:.2e}",
         )
 
         # The chunk loop at its bench problem, sharded against unsharded.
-        state0, A_d, c_d, cand_d = _bench_chunk_inputs(torch, np, device)
         shard = column_shard(mesh, A_d.shape[1], device)
         A_s, c_s, cand_s = shard.take(A_d), shard.take(c_d), shard.take(cand_d)
         state_s = shard_state(mesh, state0, A_d.shape[1])
-        kw = dict(pricing=kernels.PRICE_STEEPEST, opt_tol=1e-7, pivot_tol=1e-7,
-                  degen_tol=1e-7)
-
-        def timed(fn):
-            def run(chunk):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                pivots = int(fn(chunk).iteration)  # the sync inside the region
-                return time.perf_counter() - t, pivots
-            return run
-
         runs = {
-            "unsharded": timed(lambda ch: kernels.run_chunk(
-                state0, A_d, A_d, c_d, cand_d, chunk=ch, **kw)),
+            "unsharded": unsharded,
             "sharded": timed(lambda ch: sharded_run_chunk(
                 shard, state_s, A_s, A_s, c_s, cand_s, chunk=ch, **kw)),
         }
@@ -2023,14 +2040,31 @@ def phase_mesh_world1(torch, np, device, main_result, pdhg_ref):
         per_chunk = sharded.COLLECTIVES
         busy_ms, launches, _top = _device_busy(torch, lambda: runs["sharded"](60), chunk_pivots)
         idle = 1.0 - busy_ms / per_pivot["sharded"][0] if busy_ms else None
+        # The two collectives of a pivot alone: 200 calls each at the
+        # chunk's sizes (the entering choice; the column with c_q and c_B).
+        pick = torch.zeros(3, dtype=torch.float64, device=device)
+        column = torch.zeros(2 * A_d.shape[0] + 1, dtype=A_d.dtype, device=device)
+        collective_ms = {}
+        for name, call in (("all_gather", lambda: sharded.all_gather(pick, shard.group, 1)),
+                           ("all_reduce", lambda: sharded.all_reduce(column, shard.group))):
+            call()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(200):
+                call()
+            torch.cuda.synchronize()
+            collective_ms[name] = (time.perf_counter() - t) / 200 * 1e3
         _line(
             "mesh/chunk", shape="x".join(map(str, A_d.shape)), pricing="steepest",
             method="median of 4 interleaved (300-10)-pivot differences",
             sharded_ms_per_pivot=f"{per_pivot['sharded'][0]:.4f}",
             unsharded_ms_per_pivot=f"{per_pivot['unsharded'][0]:.4f}",
+            unsharded_before_group_ms_per_pivot=f"{before_group['unsharded'][0]:.4f}",
             sharded_q1_q3="/".join(f"{q:.4f}" for q in per_pivot["sharded"][1:3]),
             unsharded_q1_q3="/".join(f"{q:.4f}" for q in per_pivot["unsharded"][1:3]),
             collectives_per_pivot=f"{per_chunk / chunk_pivots:.3f}",
+            all_gather_ms=f"{collective_ms['all_gather']:.4f}",
+            all_reduce_ms=f"{collective_ms['all_reduce']:.4f}",
             sharded_launches_per_pivot=f"{launches / chunk_pivots:.1f}",
             sharded_device_busy_ms_per_pivot=(f"{busy_ms:.4f}" if busy_ms
                                               else "not measured"),
@@ -2066,8 +2100,7 @@ def phase_other_modes(torch, np, device, knap6_pivots, main_result):
         ("first_order/pdhg", lambda: phase_first_order_pdhg(torch, np, device)),
         ("lu/real", lambda: phase_lu_real(torch)),
         ("df32/real", lambda: phase_df32_real(torch, np)),
-        ("mesh/world1", lambda: phase_mesh_world1(
-            torch, np, device, main_result, replays["first_order/pdhg"])),
+        ("mesh/world1", lambda: phase_mesh_world1(torch, np, device, main_result)),
     ):
         _zero_launch_counts()
         replays[path] = run()

@@ -120,13 +120,9 @@ class _Grid:
 
     @staticmethod
     def _sum(t, group):
-        import torch.distributed as dist
+        from relp_tpu_torch.parallel.sharded import all_reduce
 
-        from relp_tpu_torch.parallel import sharded
-
-        sharded._count()
-        dist.all_reduce(t, group=group)
-        return t
+        return all_reduce(t, group)
 
     def Ax(self, A, x):
         return self._sum(torch.matmul(A, x), self.cols)
@@ -154,14 +150,9 @@ class _Grid:
         return x[index * n:(index + 1) * n]
 
     def gather(self, v, group, parts: int):
-        import torch.distributed as dist
+        from relp_tpu_torch.parallel.sharded import all_gather
 
-        from relp_tpu_torch.parallel import sharded
-
-        out = [torch.empty_like(v) for _ in range(parts)]
-        sharded._count()
-        dist.all_gather(out, v.contiguous(), group=group)
-        return torch.cat(out)
+        return torch.cat(all_gather(v, group, parts))
 
 
 _LOCAL = _Local()

@@ -296,11 +296,10 @@ def solve_batch(
             return flags
         import torch.distributed as dist
 
-        from relp_tpu_torch.parallel import sharded
+        from relp_tpu_torch.parallel.sharded import all_reduce
 
         t = torch.tensor([float(f) for f in flags], device=device)
-        sharded._count()
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        all_reduce(t, op=dist.ReduceOp.MAX)
         return tuple(bool(v) for v in t.cpu().numpy() > 0)
 
     _timing = _os.environ.get("RELP_TPU_BATCH_TIMING", "")

@@ -37,9 +37,21 @@ import torch.distributed as dist
 COLLECTIVES = 0
 
 
-def _count():
+def all_reduce(t: torch.Tensor, group=None, op=None) -> torch.Tensor:
+    """``dist.all_reduce`` of ``t`` in place (SUM by default), counted."""
     global COLLECTIVES
     COLLECTIVES += 1
+    dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op, group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, group, size: int) -> List[torch.Tensor]:
+    """The group's ``size`` copies of ``t``'s shape, in rank order, counted."""
+    global COLLECTIVES
+    COLLECTIVES += 1
+    parts = [torch.empty_like(t) for _ in range(size)]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return parts
 
 
 def _bounds(n: int, parts: int, index: int):
@@ -84,17 +96,9 @@ class ColumnShard:
         y = x.to(torch.uint8) if dtype == torch.bool else x
         if self.n < width:
             y = torch.nn.functional.pad(y, (0, width - self.n))
-        parts: List[torch.Tensor] = [torch.empty_like(y) for _ in range(self.size)]
-        _count()
-        dist.all_gather(parts, y.contiguous(), group=self.group)
+        parts = all_gather(y, self.group, self.size)
         out = torch.cat([p[..., :w] for p, w in zip(parts, self.widths)], dim=-1)
         return out.to(dtype) if dtype == torch.bool else out
-
-    def sum(self, x: torch.Tensor) -> torch.Tensor:
-        """all_reduce(SUM) of a fresh tensor over the ranks of the LP."""
-        _count()
-        dist.all_reduce(x, group=self.group)
-        return x
 
     # --- the per-pivot collectives ---
 
@@ -108,10 +112,7 @@ class ColumnShard:
             (loc + self.lo).to(torch.float64),
             any_local.to(torch.float64),
         ])
-        parts = [torch.empty_like(packed) for _ in range(self.size)]
-        _count()
-        dist.all_gather(parts, packed, group=self.group)
-        g = torch.stack(parts)  # (ranks, 3, ...)
+        g = torch.stack(all_gather(packed, self.group, self.size))  # (ranks, 3, ...)
         win = torch.argmax(g[:, 0], dim=0, keepdim=True)  # first max: lowest rank
         q = torch.take_along_dim(g[:, 1], win, dim=0)[0].to(torch.int64)
         top = torch.take_along_dim(g[:, 0], win, dim=0)[0]
@@ -137,7 +138,7 @@ class ColumnShard:
         ids = torch.cat([q.reshape(Bt, 1).to(torch.int64), basis.to(torch.int64)], dim=1)
         ic, own_c = self._local(ids)
         cv = torch.where(own_c, torch.take_along_dim(c, ic, dim=1), 0)
-        packed = self.sum(torch.cat([col, cv.to(col.dtype)], dim=1))
+        packed = all_reduce(torch.cat([col, cv.to(col.dtype)], dim=1), self.group)
         a_q, c_q, cB = packed[:, :M], packed[:, M], packed[:, M + 1:]
         c_q, cB = c_q.to(c.dtype), cB.to(c.dtype)
         if single:
@@ -154,7 +155,8 @@ class ColumnShard:
         ib, own = self._local(basis)
         B = torch.where(own[:, None, :], torch.take_along_dim(A, ib[:, None, :], dim=2), 0)
         cB = torch.where(own, torch.take_along_dim(c, ib, dim=1), 0)
-        packed = self.sum(torch.cat([B.reshape(Bt, M * M), cB.to(B.dtype)], dim=1))
+        packed = all_reduce(torch.cat([B.reshape(Bt, M * M), cB.to(B.dtype)], dim=1),
+                            self.group)
         B, cB = packed[:, : M * M].reshape(Bt, M, M), packed[:, M * M:].to(c.dtype)
         return (B[0], cB[0]) if single else (B, cB)
 

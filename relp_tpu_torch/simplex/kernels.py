@@ -107,19 +107,18 @@ def _select_entering_sharded(d, gamma, eligible, any_eligible, pricing, N,
     lowest global index).  The smallest-index rules take the negated
     (rotated) distance as key, with the global N."""
     ids = shard.ids
+    rotated = pricing == PRICE_FIRST_MEMORY and start is not None
     if pricing == PRICE_DANTZIG:
         key = torch.where(eligible, -d, float("-inf"))
     elif pricing == PRICE_STEEPEST:
         key = torch.where(eligible, d * d / gamma, float("-inf"))
-    elif pricing == PRICE_FIRST_MEMORY and start is not None:
+    elif rotated:
         key = -torch.where(eligible, (ids - start) % N, N)
     else:
         key = -torch.where(eligible, ids, N)
     loc = torch.argmax(key)
     q, any_all, top = shard.best(_at(key, loc), loc, any_eligible)
-    if pricing not in (PRICE_DANTZIG, PRICE_STEEPEST) and not (
-        pricing == PRICE_FIRST_MEMORY and start is not None
-    ):
+    if pricing not in (PRICE_DANTZIG, PRICE_STEEPEST) and not rotated:
         # min(eligible index, N) clamped: N - 1 when nothing is eligible.
         q = torch.clamp_max((-top).to(torch.int64), N - 1)
     return q, any_all
