@@ -379,7 +379,7 @@ def _v_refactor(A, b, c, basis, *, newton_steps: int, shard=None):
     a singular basis gives a non-finite residual)."""
     if shard is not None:
         Bm, cB = shard.basis_columns(A, c, basis)
-        fn = functools.partial(kernels._newton_from, newton_steps=newton_steps)
+        fn = functools.partial(kernels.refactorize_from, newton_steps=newton_steps)
         return torch.vmap(fn)(Bm, cB, b)
     fn = functools.partial(kernels.refactorize, newton_steps=newton_steps)
     return torch.vmap(fn)(A, b, c, basis)

@@ -161,14 +161,9 @@ class ColumnShard:
         return (B[0], cB[0]) if single else (B, cB)
 
     def put(self, x: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
-        """x with ``value`` at global column ``idx`` where this rank owns it
-        (0-d idx for a single LP, (B,) per LP); a new tensor."""
-        idx = idx.to(torch.int64)
-        if x.dim() == 2:
-            idx = idx.reshape(-1, 1)
-            if isinstance(value, torch.Tensor) and value.dim() == 1:
-                value = value.reshape(-1, 1)
-        return torch.where(self.ids == idx, value, x)
+        """A copy of the (n,) column-sized ``x`` with ``value`` at global
+        column ``idx`` (one index) where this rank owns it."""
+        return torch.where(self.ids == idx.to(torch.int64), value, x)
 
 
 def _group(mesh, axis: str):

@@ -132,8 +132,9 @@ class DenseEngine:
             return state._replace(Binv=Binv, xB=xB, pi=pi, obj=obj), health_r
 
         newton = 3 if cfg.dtype == "float64" else 1
-        Bm, cB_dev = kernels.basis_columns(A, c, state.basis, shard)
-        Binv, xB, pi, obj, residual = kernels._newton_from(Bm, cB_dev, b, newton)
+        Binv, xB, pi, obj, residual = kernels.refactorize(
+            A, b, c, state.basis, newton_steps=newton, shard=shard
+        )
         stats.refactorizations += 1
         res = float(residual)
         if not np.isfinite(res) or res > self._accept_tol(A, cfg):
@@ -154,6 +155,7 @@ class DenseEngine:
                 "refactor: device refactorize rejected (res %.3e, health "
                 "%s), host LAPACK fallback at m=%d", res, health_f, A.shape[0],
             )
+            Bm, cB_dev = kernels.basis_columns(A, c, state.basis, shard)
             B = Bm.to(torch.float64).cpu().numpy()
             try:
                 Binv_h = np.linalg.inv(B)

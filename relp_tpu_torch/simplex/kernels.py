@@ -516,8 +516,8 @@ def _newton(B, X, b, cB, steps: int):
     return X, xB, pi, obj, residual
 
 
-def _newton_from(B, cB, b, newton_steps: int):
-    """``refactorize`` from the gathered (B, c_B)."""
+def refactorize_from(B, cB, b, newton_steps: int):
+    """``refactorize`` from the basis's (B, c_B)."""
     X = torch.linalg.inv_ex(B.to(torch.float32)).inverse.to(B.dtype)
     return _newton(B, X, b, cB, newton_steps)
 
@@ -528,7 +528,7 @@ def refactorize(A, b, c, basis, *, newton_steps: int = 3, shard=None):
     residual) with residual = max|B Binv - I|; a singular B gives a
     non-finite residual (``inv_ex`` does not raise)."""
     B, cB = basis_columns(A, c, basis, shard)
-    return _newton_from(B, cB, b, newton_steps)
+    return refactorize_from(B, cB, b, newton_steps)
 
 
 def newton_refresh(Binv, A, b, c, basis, *, steps: int = 2, shard=None):
