@@ -33,8 +33,6 @@ from relp_tpu_torch.simplex.kernels import (
     _INT32_MAX,
     _status,
     PRICE_BLAND,
-    PRICE_DANTZIG,
-    PRICE_FIRST_MEMORY,
     PRICE_STEEPEST,
 )
 from relp_tpu_torch.simplex.state import (
@@ -91,47 +89,6 @@ def _select(mask: torch.Tensor, new: torch.Tensor, old: torch.Tensor) -> torch.T
     return torch.where(mask.reshape((-1,) + (1,) * (new.dim() - 1)), new, old)
 
 
-def _select_entering(d, gamma, eligible, pricing: int, start, shard=None):
-    """Per-LP entering column; returns (q, any_eligible), q int64 (B,)
-    (global with a shard)."""
-    N = d.shape[1]
-    any_eligible = eligible.any(dim=1)
-    if shard is not None:
-        return _select_entering_sharded(d, gamma, eligible, any_eligible,
-                                        pricing, start, shard)
-    if pricing == PRICE_DANTZIG:
-        q = torch.argmax(torch.where(eligible, -d, float("-inf")), dim=1)
-    elif pricing == PRICE_STEEPEST:
-        q = torch.argmax(torch.where(eligible, d * d / gamma, float("-inf")), dim=1)
-    elif pricing == PRICE_FIRST_MEMORY:
-        rotated = (_ids(N, d) - start.unsqueeze(1)) % N
-        q = torch.argmin(torch.where(eligible, rotated, N), dim=1)
-    else:  # Bland / first-profitable: smallest eligible index
-        q = torch.clamp_max(torch.where(eligible, _ids(N, d), N).amin(dim=1), N - 1)
-    return q, any_eligible
-
-
-def _select_entering_sharded(d, gamma, eligible, any_eligible, pricing,
-                             start, shard):
-    """``_select_entering`` over column shards, per LP: each rank's first
-    local maximum of the key, combined by ``shard.best`` (see
-    ``kernels._select_entering_sharded``)."""
-    N, ids = shard.N, shard.ids.unsqueeze(0)
-    if pricing == PRICE_DANTZIG:
-        key = torch.where(eligible, -d, float("-inf"))
-    elif pricing == PRICE_STEEPEST:
-        key = torch.where(eligible, d * d / gamma, float("-inf"))
-    elif pricing == PRICE_FIRST_MEMORY:
-        key = -torch.where(eligible, (ids - start.unsqueeze(1)) % N, N)
-    else:
-        key = -torch.where(eligible, ids, N)
-    loc = torch.argmax(key, dim=1)
-    q, any_all, top = shard.best(_take(key, loc), loc, any_eligible)
-    if pricing not in (PRICE_DANTZIG, PRICE_STEEPEST, PRICE_FIRST_MEMORY):
-        q = torch.clamp_max((-top).to(torch.int64), N - 1)
-    return q, any_all
-
-
 def _select_leaving(xB, w, basis, pricing: int, pivot_tol: float):
     """Per-LP Harris two-pass ratio test (Bland: lowest leaving basis index
     among near ties).  Returns (r, any_positive), r int64 (B,)."""
@@ -160,11 +117,10 @@ def _batched_iteration(
 ) -> SimplexState:
     """One primal iteration of every LP: ``_iteration`` of
     relp_tpu_torch.simplex.kernels with a leading batch dimension."""
-    B, M, N = A_scan.shape
-    # Column ids of this rank's block (global); N the global width.
-    col_ids = _ids(N, s.d) if shard is None else shard.ids.unsqueeze(0)
-    if shard is not None:
-        N = shard.N
+    B, M, _ = A_scan.shape
+    cols = kernels.columns(shard, A_scan.shape[2], A_scan.device)
+    N = cols.N  # global under a shard, as are the column ids
+    col_ids = cols.ids.unsqueeze(0)
     scan_dtype = A_scan.dtype
     low_precision_scan = scan_dtype != A_full.dtype
     noisy = noisy_scan and not low_precision_scan and scan_dtype == torch.float32
@@ -184,15 +140,12 @@ def _batched_iteration(
         threshold = opt_tol
     eligible = candidate_mask & ~s.in_basis & (d < -threshold)
     gamma = s.gamma.to(scan_dtype)
-    q, any_eligible = _select_entering(d, gamma, eligible, pricing, s.price_start,
-                                       shard)
+    q, any_eligible = kernels._select_entering(
+        d, gamma, eligible, pricing, N, start=s.price_start, shard=shard
+    )
 
-    # --- FTRAN at working precision ---
-    if shard is None:
-        a_q = _col(A_full, q)
-        c_q = _take(c, q)
-    else:  # from the owners; c_B too, for the objective below
-        a_q, c_q, cB = shard.fetch(A_full, c, q, s.basis)
+    # --- FTRAN at working precision (c_B too, for the objective below) ---
+    a_q, c_q, cB = cols.fetch(A_full, c, q, s.basis)
     w = _matvec(s.Binv, a_q)
     d_q_full = c_q - _dot(s.pi, a_q)
     if guarded:
@@ -225,11 +178,7 @@ def _batched_iteration(
 
     # Incremental dual update; the objective is recomputed as cB . xB.
     pi_new = s.pi + d_q_full.unsqueeze(1) * Binv_r
-    if shard is None:
-        cB_new = torch.take_along_dim(c, basis_new.to(torch.int64), dim=1)
-    else:
-        cB_new = torch.where(row_r, c_q.unsqueeze(1), cB)
-    obj_new = _dot(cB_new, xB_new)
+    obj_new = _dot(torch.where(row_r, c_q.unsqueeze(1), cB), xB_new)
 
     # --- next reduced costs and, for steepest edge, the Goldfarb weights:
     # one stacked (3, M) x (M, N) product per LP ---
@@ -366,23 +315,16 @@ def _batched_dual_iteration(
 def _v_newton(Binv, A, b, c, basis, *, steps: int, shard=None):
     """Newton-Schulz refresh of every carried inverse: (Binv, xB, pi, obj,
     residual), each with a leading batch dimension."""
-    if shard is not None:  # B from the owners, outside the vmap
-        Bm, cB = shard.basis_columns(A, c, basis)
-        fn = functools.partial(kernels._newton, steps=steps)
-        return torch.vmap(fn)(Bm, Binv, b, cB)
-    fn = functools.partial(kernels.newton_refresh, steps=steps)
-    return torch.vmap(fn)(Binv, A, b, c, basis)
+    Bm, cB = kernels.basis_columns(A, c, basis, shard)  # outside the vmap
+    return torch.vmap(functools.partial(kernels._newton, steps=steps))(Bm, Binv, b, cB)
 
 
 def _v_refactor(A, b, c, basis, *, newton_steps: int, shard=None):
     """From-scratch inverses of every basis (f32 ``inv_ex`` + Newton-Schulz;
     a singular basis gives a non-finite residual)."""
-    if shard is not None:
-        Bm, cB = shard.basis_columns(A, c, basis)
-        fn = functools.partial(kernels.refactorize_from, newton_steps=newton_steps)
-        return torch.vmap(fn)(Bm, cB, b)
-    fn = functools.partial(kernels.refactorize, newton_steps=newton_steps)
-    return torch.vmap(fn)(A, b, c, basis)
+    Bm, cB = kernels.basis_columns(A, c, basis, shard)
+    fn = functools.partial(kernels.refactorize_from, newton_steps=newton_steps)
+    return torch.vmap(fn)(Bm, cB, b)
 
 
 def _v_gamma(Binv, A_scan, in_basis):

@@ -103,20 +103,21 @@ class ColumnShard:
     # --- the per-pivot collectives ---
 
     def best(self, key: torch.Tensor, loc: torch.Tensor, any_local: torch.Tensor):
-        """The winning (global index, any eligible, key) over the ranks from
-        each rank's best ``key`` at local index ``loc`` (0-d or per LP):
-        the highest key, the lowest global index on a tie, a NaN key
-        winning as under ``torch.argmax``."""
+        """The winning (global index, any eligible) over the ranks from each
+        rank's ``key`` (last dimension; per LP with a leading batch
+        dimension) at its first maximum ``loc``: the highest key, the
+        lowest global index on a tie, a NaN key winning as under
+        ``torch.argmax``."""
+        top = torch.take_along_dim(key, loc.unsqueeze(-1), dim=-1).squeeze(-1)
         packed = torch.stack([
-            key.to(torch.float64),
+            top.to(torch.float64),
             (loc + self.lo).to(torch.float64),
             any_local.to(torch.float64),
         ])
         g = torch.stack(all_gather(packed, self.group, self.size))  # (ranks, 3, ...)
         win = torch.argmax(g[:, 0], dim=0, keepdim=True)  # first max: lowest rank
         q = torch.take_along_dim(g[:, 1], win, dim=0)[0].to(torch.int64)
-        top = torch.take_along_dim(g[:, 0], win, dim=0)[0]
-        return q, g[:, 2].amax(dim=0) > 0, top
+        return q, g[:, 2].amax(dim=0) > 0
 
     def _local(self, idx: torch.Tensor):
         """(clamped local index, owned) of global column indices."""

@@ -588,7 +588,6 @@ def _solve_relaxation_once(
             "basis_inverse='lu' does not run column-sharded: ROADMAP.md "
             "Queue 1, 'LUEngine under a mesh'"
         )
-    engine = make_engine(cfg, device)
     stats = SolveStats()
     t_start = time.time()
     dtype = _lower_dtype(cfg)
@@ -598,14 +597,16 @@ def _solve_relaxation_once(
     )
 
     def place(problem):
-        # With a mesh, the engine's column shard follows each lowering's N.
+        """The engine of this lowering (with a mesh, its column shard
+        follows the lowering's N) and its device arrays."""
+        shard = None
         if mesh is not None:
             from relp_tpu_torch.parallel.sharded import column_shard
 
-            engine.shard = column_shard(mesh, problem.N, device)
-        return _device_arrays(problem, cfg, device, getattr(engine, "shard", None))
+            shard = column_shard(mesh, problem.N, device)
+        return make_engine(cfg, device, shard), _device_arrays(problem, cfg, device, shard)
 
-    A, A_scan, b, c1, c2, candidate_mask = place(problem)
+    engine, (A, A_scan, b, c1, c2, candidate_mask) = place(problem)
 
     warm_started = False
     cold_basis = problem.initial_basis.copy()
@@ -714,7 +715,7 @@ def _solve_relaxation_once(
                 if j < problem.n_real:
                     new_basis[new_i] = j
             problem.initial_basis = new_basis
-            A, A_scan, b, c1, c2, candidate_mask = place(problem)
+            engine, (A, A_scan, b, c1, c2, candidate_mask) = place(problem)
             state = engine.init_state(problem, cfg)
 
         # Phase transition: real costs, fresh factorization.

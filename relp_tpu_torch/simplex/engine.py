@@ -59,14 +59,12 @@ class DenseEngine:
     def __init__(self, device: torch.device, shard=None):
         self.device = device
         # A ``parallel.sharded.ColumnShard`` when the tableau is sharded by
-        # column over a mesh (set by the driver for each lowering).
+        # column over a mesh: one engine per lowering (``make_engine``).
         self.shard = shard
 
     def init_state(self, problem: DeviceProblem, cfg: SolverConfig) -> SimplexState:
         state = self._init_state(problem, cfg)
-        if self.shard is None:
-            return state
-        take = self.shard.take
+        take = kernels.columns(self.shard, problem.N, self.device).take
         return state._replace(
             in_basis=take(state.in_basis), gamma=take(state.gamma), d=take(state.d)
         )
@@ -437,9 +435,13 @@ class DoubleFloatEngine:
         return df_forced_pivot(state, A, c, q, r)
 
 
-def make_engine(cfg: SolverConfig, device: torch.device):
+def make_engine(cfg: SolverConfig, device: torch.device, shard=None):
+    """The engine of ``cfg``; ``shard`` is the lowering's column shard under
+    a mesh, which only the dense engine takes."""
+    if shard is not None and (cfg.carry == "df32" or cfg.basis_inverse == "lu"):
+        raise ValueError("only the dense engine runs column-sharded")
     if cfg.carry == "df32":
         return DoubleFloatEngine(device)
     if cfg.basis_inverse == "lu":
         return LUEngine(device)
-    return DenseEngine(device)
+    return DenseEngine(device, shard)

@@ -28,6 +28,8 @@ Differences from the JAX code, and why:
   code.  With a shard, A, c, the mask and the N-sized state hold this
   rank's columns, indices stay global, and the entering choice, the
   entering column and B at refactorization are combined across ranks.
+  Without one, ``LocalColumns`` gives the same interface with no
+  collective, so the kernels have one code path.
 """
 
 from __future__ import annotations
@@ -77,51 +79,88 @@ def _status(*pairs, default: int) -> torch.Tensor:
     return out.to(torch.int32)
 
 
+class LocalColumns:
+    """Every column of the LP (or of each LP of a batch) on this device: the
+    interface of ``relp_tpu_torch.parallel.sharded.ColumnShard`` with no
+    collective, so that one code path serves both.  Indices are the
+    columns' own."""
+
+    def __init__(self, N: int, device):
+        self.N = N
+        self.device = device
+
+    @property
+    def ids(self) -> torch.Tensor:
+        return torch.arange(self.N, device=self.device)
+
+    def take(self, x):
+        return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def best(self, key, loc, any_local):
+        """(index, any eligible) of the first maximum ``loc`` of ``key``."""
+        return loc, any_local
+
+    def fetch(self, A, c, q, basis):
+        """(A[:, q], c[q], c[basis]); per LP with a leading batch dimension."""
+        if A.dim() == 2:
+            a_q = A.index_select(1, q.reshape(1)).reshape(A.shape[0])
+            return a_q, _at(c, q), c.index_select(0, basis.to(torch.int64))
+        a_q = torch.take_along_dim(A, q.reshape(-1, 1, 1), dim=2).squeeze(2)
+        c_q = torch.take_along_dim(c, q.reshape(-1, 1), dim=1).reshape(-1)
+        return a_q, c_q, torch.take_along_dim(c, basis.to(torch.int64), dim=1)
+
+    def basis_columns(self, A, c, basis):
+        """(B, c_B) = (A[:, basis], c[basis]); per LP with a leading batch
+        dimension."""
+        basis64 = basis.to(torch.int64)
+        if A.dim() == 2:
+            return A.index_select(1, basis64), c.index_select(0, basis64)
+        return (torch.take_along_dim(A, basis64.unsqueeze(1), dim=2),
+                torch.take_along_dim(c, basis64, dim=1))
+
+    def put(self, x: torch.Tensor, idx: torch.Tensor, value) -> torch.Tensor:
+        """``x`` (a tensor the caller owns, written in place) with ``value``
+        at column ``idx`` (one index)."""
+        idx = idx.reshape(1).to(torch.int64)
+        if isinstance(value, torch.Tensor):
+            return x.index_copy_(0, idx, value.reshape(1).to(x.dtype))
+        return x.index_fill_(0, idx, value)
+
+
+def columns(shard, N: int, device):
+    """The columns' interface: ``shard`` (a ``ColumnShard``, N then its
+    global width) or, with none, the ``LocalColumns`` of N columns."""
+    return LocalColumns(N, device) if shard is None else shard
+
+
 def _select_entering(d, gamma, eligible, pricing: int, N: int, start=None,
                      shard=None):
-    """Entering-column choice; returns (q, any_eligible), q int64 (global
-    with a shard, N then being the global width)."""
-    any_eligible = eligible.any()
-    if shard is not None:
-        return _select_entering_sharded(
-            d, gamma, eligible, any_eligible, pricing, N, start, shard
-        )
-    if pricing == PRICE_DANTZIG:
-        q = torch.argmax(torch.where(eligible, -d, float("-inf")))
-    elif pricing == PRICE_STEEPEST:
-        q = torch.argmax(torch.where(eligible, d * d / gamma, float("-inf")))
-    elif pricing == PRICE_FIRST_MEMORY and start is not None:
-        idx = torch.arange(N, device=d.device)
-        rotated = (idx - start) % N  # distance past the resume point
-        q = torch.argmin(torch.where(eligible, rotated, N))
-    else:  # Bland / first-profitable: smallest eligible index
-        idx = torch.arange(N, device=d.device)
-        q = torch.clamp_max(torch.where(eligible, idx, N).min(), N - 1)
-    return q, any_eligible
-
-
-def _select_entering_sharded(d, gamma, eligible, any_eligible, pricing, N,
-                             start, shard):
-    """``_select_entering`` over column shards: every rank's best key at
-    its first local maximum, combined by ``shard.best`` (highest key, then
-    lowest global index).  The smallest-index rules take the negated
-    (rotated) distance as key, with the global N."""
-    ids = shard.ids
+    """Entering-column choice over the last dimension (per LP with a
+    leading batch dimension); returns (q, any_eligible), q int64.  Each
+    rule is a key whose first maximum wins: -d (Dantzig), d^2/gamma
+    (steepest edge), else the negated distance past ``start`` (round-robin
+    resume) or the negated index (the smallest eligible index).  With a
+    ``shard`` the inputs are this rank's block, N is the global width, q is
+    global, and ``shard.best`` takes the highest key over the ranks, the
+    lowest global index on a tie."""
+    cols = columns(shard, N, d.device)
     rotated = pricing == PRICE_FIRST_MEMORY and start is not None
     if pricing == PRICE_DANTZIG:
         key = torch.where(eligible, -d, float("-inf"))
     elif pricing == PRICE_STEEPEST:
         key = torch.where(eligible, d * d / gamma, float("-inf"))
     elif rotated:
-        key = -torch.where(eligible, (ids - start) % N, N)
+        key = -torch.where(eligible, (cols.ids - start.unsqueeze(-1)) % N, N)
     else:
-        key = -torch.where(eligible, ids, N)
-    loc = torch.argmax(key)
-    q, any_all, top = shard.best(_at(key, loc), loc, any_eligible)
+        key = -torch.where(eligible, cols.ids, N)
+    q, any_eligible = cols.best(key, torch.argmax(key, dim=-1), eligible.any(dim=-1))
     if pricing not in (PRICE_DANTZIG, PRICE_STEEPEST) and not rotated:
         # min(eligible index, N) clamped: N - 1 when nothing is eligible.
-        q = torch.clamp_max((-top).to(torch.int64), N - 1)
-    return q, any_all
+        q = torch.where(any_eligible, q, N - 1)
+    return q, any_eligible
 
 
 def _select_leaving(xB, w, basis, pricing: int, pivot_tol: float):
@@ -152,9 +191,9 @@ def _iteration(
     active: Optional[torch.Tensor], *, pricing: int, opt_tol: float,
     pivot_tol: float, degen_tol: float, noisy_scan: bool, shard=None,
 ) -> SimplexState:
-    M, N = A_scan.shape
-    if shard is not None:
-        N = shard.N
+    M = A_scan.shape[0]
+    cols = columns(shard, A_scan.shape[1], A_scan.device)
+    N = cols.N
     scan_dtype = A_scan.dtype
     low_precision_scan = scan_dtype != A_full.dtype
     noisy = noisy_scan and not low_precision_scan and scan_dtype == torch.float32
@@ -183,12 +222,8 @@ def _iteration(
         d, gamma, eligible, pricing, N, start=state.price_start, shard=shard
     )
 
-    # --- FTRAN at working precision ---
-    if shard is None:
-        a_q = A_full.index_select(1, q.reshape(1)).reshape(M)
-        c_q = _at(c, q)
-    else:  # from the owner; c_B too, for the objective below
-        a_q, c_q, cB = shard.fetch(A_full, c, q, state.basis)
+    # --- FTRAN at working precision (c_B too, for the objective below) ---
+    a_q, c_q, cB = cols.fetch(A_full, c, q, state.basis)
     w = torch.matmul(state.Binv, a_q)
     d_q_full = c_q - torch.matmul(state.pi, a_q)
     if guarded:
@@ -219,15 +254,8 @@ def _iteration(
 
     leaving = _at(state.basis, r).to(torch.int64).reshape(1)
     basis_new = state.basis.clone().index_copy_(0, r1, q1.to(torch.int32))
-    if shard is None:
-        in_basis_new = (
-            state.in_basis.clone().index_fill_(0, leaving, False)
-            .index_fill_(0, q1, True)
-        )
-        cB_new = c.index_select(0, basis_new.to(torch.int64))
-    else:
-        in_basis_new = shard.put(shard.put(state.in_basis, leaving, False), q, True)
-        cB_new = cB.clone().index_copy_(0, r1, c_q.reshape(1))
+    in_basis_new = cols.put(cols.put(state.in_basis.clone(), leaving, False), q, True)
+    cB_new = cB.index_copy_(0, r1, c_q.reshape(1))  # cB is fresh
 
     # Incremental dual update pi' = pi + d_q rho_r; the objective is
     # recomputed as cB @ xB (the incremental form is wrong whenever the
@@ -247,11 +275,7 @@ def _iteration(
         g_leaving = torch.clamp_min(
             gamma_q_val / (safe_w_r * safe_w_r).to(scan_dtype), 1.0
         )
-        if shard is None:
-            gamma_new.index_copy_(0, leaving, g_leaving.reshape(1))
-            gamma_new.index_fill_(0, q1, 1.0)
-        else:  # on the columns' owners
-            gamma_new = shard.put(shard.put(gamma_new, leaving, g_leaving), q, 1.0)
+        gamma_new = cols.put(cols.put(gamma_new, leaving, g_leaving), q, 1.0)
         gamma_new = gamma_new.to(state.gamma.dtype)
     else:
         gamma_new = state.gamma
@@ -497,10 +521,7 @@ def dual_run_chunk(
 def basis_columns(A, c, basis, shard=None):
     """(B, c_B): the basis's columns of A and entries of c (exact; from
     their owners with a shard)."""
-    if shard is not None:
-        return shard.basis_columns(A, c, basis)
-    basis64 = basis.to(torch.int64)
-    return A.index_select(1, basis64), c.index_select(0, basis64)
+    return columns(shard, A.shape[-1], A.device).basis_columns(A, c, basis)
 
 
 def _newton(B, X, b, cB, steps: int):
@@ -581,8 +602,7 @@ def recompute_gamma(Binv, A_scan, in_basis):
 def tableau_row(Binv, A, r: int, shard=None):
     """Row r of the current tableau, Binv[r] @ A (gathered to the full
     width with a shard)."""
-    row = torch.matmul(Binv[r], A)
-    return row if shard is None else shard.gather(row)
+    return columns(shard, A.shape[1], A.device).gather(torch.matmul(Binv[r], A))
 
 
 def reduced_costs(pi, A, c):
@@ -592,11 +612,9 @@ def reduced_costs(pi, A, c):
 def forced_pivot(state: SimplexState, A, c, q: int, r: int, shard=None) -> SimplexState:
     """Pivot column q in at row r unconditionally (zero-level pivots while
     driving artificials out).  q and r are host ints (q global)."""
-    if shard is None:
-        a_q = A[:, q]
-    else:
-        q_t = torch.tensor(q, device=A.device)
-        a_q, c_q, cB = shard.fetch(A, c, q_t, state.basis)
+    cols = columns(shard, A.shape[1], A.device)
+    q_t = torch.tensor(q, device=A.device)
+    a_q, c_q, cB = cols.fetch(A, c, q_t, state.basis)
     w = torch.matmul(state.Binv, a_q)
     w_r = w[r]
     t = state.xB[r] / w_r
@@ -608,14 +626,8 @@ def forced_pivot(state: SimplexState, A, c, q: int, r: int, shard=None) -> Simpl
     leaving = state.basis[r].to(torch.int64).reshape(1)
     basis_new = state.basis.clone()
     basis_new[r] = q
-    if shard is None:
-        in_basis_new = state.in_basis.clone().index_fill_(0, leaving, False)
-        in_basis_new[q] = True
-        cB = c.index_select(0, basis_new.to(torch.int64))
-    else:
-        in_basis_new = shard.put(shard.put(state.in_basis, leaving, False), q_t, True)
-        cB = cB.clone()
-        cB[r] = c_q
+    in_basis_new = cols.put(cols.put(state.in_basis.clone(), leaving, False), q_t, True)
+    cB[r] = c_q  # cB is fresh
     return state._replace(
         Binv=Binv_new,
         basis=basis_new,

@@ -32,15 +32,6 @@ REAL_SIZE_OBJECTIVE_SHA256 = (
     "bcfc1e250b31a8760e462fb93c0e3ea42c2e2edaa1517a34a2ee13862a0bb7e5"
 )
 
-# The size at which chip_smoke drives the LU engine and the first-order
-# route (m=192, n=768, seed 7; 1,572 pivots in f64), cut from REAL_SIZE to
-# keep the script in its time limit.  Pinned like REAL_SIZE, from a
-# certified f64 solve by the JAX package.
-MODES_SIZE = dict(m=192, n=768, seed=7)
-MODES_SIZE_OBJECTIVE_SHA256 = (
-    "9628795345ab4d01ed9dd3712a5fb56200a0b5702b31cca76d951a41d17fe813"
-)
-
 # The two scenario families of chip_smoke's batch phases: rhs-perturbed
 # copies of the generated LP, seed 7, salt 0.  "resident": m=32, n=96 (an
 # ADLITTLE-class problem, lowered 128 x 384), 256 scenarios; "blocked":

@@ -209,15 +209,16 @@ def tie_case():
     shard = column_shard(mesh, N, "cpu")
     inf = float("inf")
     found = {}
+    yes = torch.tensor(True)
     # Equal keys on every rank: the lowest global index (rank 0's) wins.
-    q, _, _ = shard.best(torch.tensor(2.0), torch.tensor(1), torch.tensor(True))
+    q, _ = shard.best(torch.full((shard.n,), 2.0), torch.tensor(1), yes)
     found["equal_keys"] = int(q) == 1
     # A NaN on the last rank beats larger keys elsewhere, as under argmax.
-    key = torch.tensor(float("nan") if shard.rank == world - 1 else 5.0)
-    q, _, _ = shard.best(key, torch.tensor(0), torch.tensor(True))
+    key = torch.full((shard.n,), float("nan") if shard.rank == world - 1 else 5.0)
+    q, _ = shard.best(key, torch.tensor(0), yes)
     found["nan_wins"] = int(q) == N - shard.widths[-1]  # the last rank's first
     # NaN everywhere: the lowest index.
-    q, _, _ = shard.best(torch.tensor(float("nan")), torch.tensor(2), torch.tensor(True))
+    q, _ = shard.best(torch.full((shard.n,), float("nan")), torch.tensor(2), yes)
     found["nan_everywhere"] = int(q) == 2
     # Every pricing rule on d with ties that span the ranks, against the
     # unsharded choice.
