@@ -1715,7 +1715,7 @@ def phase_lu_real(torch):
     digest = hashlib.sha256(str(solution.objective_value).encode()).hexdigest()
     _check(digest == REAL_SIZE_OBJECTIVE_SHA256, f"lu/real digest {digest}")
     _check("run_chunk" in kept, f"lu/real: {len(calls)} chunks, fewer than 20")
-    pivots = result.stats.iterations + result.stats.phase1_iterations
+    pivots = result.stats.iterations  # both phases' pivots
     solve_s = result.stats.wall_time_s - result.stats.certify_time_s
     (self, state, *args), kwargs = kept["run_chunk"]
     run_chunk = engine.LUEngine.run_chunk
@@ -1874,10 +1874,12 @@ _MESH_PDHG_ITERS = 4_000
 # mesh/world1's PDHG against the same call unsharded: in a world of one the
 # two differ only in how the norms are summed (a sum of squares reduced over
 # the group against torch.linalg.vector_norm), so the step sizes differ in
-# the last f32 bits.  The objective's relative difference measured 1.6e-6
-# and 7.4e-7 on an H100 (PERF.md); the iterates' limit is set the same way.
+# the last f32 bits.  Each limit is about ten times what an H100 measured
+# (PERF.md): the objective's relative difference 1.6e-6 and 7.4e-7, x's
+# largest difference relative to its largest entry 1.7e-4, y's 9.3e-8.
 _MESH_PDHG_OBJECTIVE_REL = 1e-5
-_MESH_PDHG_ITERATE_REL = 1e-3
+_MESH_PDHG_X_REL = 1e-3
+_MESH_PDHG_Y_REL = 1e-6
 
 
 def phase_mesh_world1(torch, np, device, main_result, window):
@@ -1890,10 +1892,10 @@ def phase_mesh_world1(torch, np, device, main_result, window):
     first_order/pdhg's LP through pdhg_solve(mesh=...) against the same
     call unsharded (4,000 iterations each): the same iterations, the
     objective within _MESH_PDHG_OBJECTIVE_REL, the iterates x and y within
-    _MESH_PDHG_ITERATE_REL (relative to their largest entry) and the
-    primal residual within twice the unsharded one; collectives and ms per
-    pivot of the sharded chunk loop beside the unsharded one at the chunk
-    loop's problem.  The path's launch counts (``window["mesh/world1"]``)
+    _MESH_PDHG_X_REL and _MESH_PDHG_Y_REL (relative to their largest
+    entry) and the primal residual within twice the unsharded one;
+    collectives and ms per pivot of the sharded chunk loop beside the
+    unsharded one at the chunk loop's problem.  The path's launch counts (``window["mesh/world1"]``)
     cover the three mesh solves only: the unsharded runs and the timing
     loops run outside that window.  The process group is destroyed at the
     end.  Returns the scan kernel's check on the inputs this path gave it."""
@@ -2039,7 +2041,7 @@ def phase_mesh_world1(torch, np, device, main_result, window):
                         for v in ("x", "y"))
         _check(one["st"].iterations == ref["st"].iterations
                and rel <= _MESH_PDHG_OBJECTIVE_REL
-               and max(x_rel, y_rel) <= _MESH_PDHG_ITERATE_REL
+               and x_rel <= _MESH_PDHG_X_REL and y_rel <= _MESH_PDHG_Y_REL
                and one["kkt"][0] <= 2.0 * ref["kkt"][0],
                f"mesh/world1 pdhg: {one['st'].iterations} iterations (unsharded "
                f"{ref['st'].iterations}), primal {one['kkt'][0]:.3e} (unsharded "
