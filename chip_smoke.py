@@ -74,13 +74,15 @@ just before it (a `launches` line after each):
                    first-order crossover's warm finish (fewer pivots than
                    the cold solve);
  14. mip/real      solve_mip (f32 defaults: cuts, strong branching, dive;
-                   64 nodes a wave, cut at 384 nodes) on the Chu-Beasley
+                   64 nodes a wave, cut at 319 nodes) on the Chu-Beasley
                    knapsack of relp_tpu_torch.testing: a rigorous exact
                    best bound above the root LP's and no higher than
                    HiGHS's optimum, a stated minimum of node LPs solved in
                    the batch, an incumbent (if one is found) exactly
                    feasible and no better; nodes, batched solves,
-                   fallbacks, the certification share.  After its launch
+                   fallbacks, the certification share, the nodes solved
+                   before its first 64-wide wave that launched the blocked
+                   kernel (blocked_wave_after_nodes).  After its launch
                    counts are read, each kernel is held against its plain
                    version on the inputs this path gave it (mip/kernel);
  15. mip/real64    the same knapsack with --dtype float64 and 16 nodes a
@@ -125,13 +127,22 @@ just before it (a `launches` line after each):
                    group exists); the scan kernel against its plain version
                    on this path's inputs.  One card shows the code, not a
                    scale-out.
+ 21. mesh/lu       in the same NCCL world of one, before it is destroyed:
+                   main/real's LP on the LU engine through
+                   solve_relaxation(mesh=..., basis_inverse="lu"):
+                   certified, main/real's digest, lu/real's pivots and basis
+                   exactly; collectives and solve ms per pivot beside
+                   lu/real's; its 20th chunk replayed under the profiler
+                   for launches and device-busy time per pivot.
 
-Then a JSON line describing each kernel (six: the scan, the two
+A `[time] phase=<name> s=<seconds>` line follows every phase (a phase run
+inside another, mesh/lu, is not counted twice), and `[time] total_s=...`
+the last of them.  Then a JSON line describing each kernel (six: the scan, the two
 batched-pivot kernels and the probe's three) with its time, its plain
 version's, its bound (the larger of its bytes at 3.35 TB/s and its
 operations at the H100's peak for their type), the library yardstick,
 its error on mip/real's inputs (the scan's also on df32/real's and
-mesh/world1's) and its launches on each of the paths 13-20 (the probe's
+mesh/world1's) and its launches on each of the paths 13-21 (the probe's
 three also floor_ms and repeat_bitwise), and as the
 last line {"ok":
 true, "device": {...}}.  Any failure raises: the exit code is then
@@ -175,6 +186,23 @@ def _line(phase: str, **fields) -> None:
 def _check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+# Seconds of the phases that have ended, for _timed's nesting.
+_ENDED_S = [0.0]
+
+
+def _timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, then a ``[time] phase=<name> s=<seconds>``
+    line: the phase's own seconds, a phase timed inside it not counted
+    again, so that the lines add up to the script's wall time."""
+    ended0 = _ENDED_S[0]
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    elapsed = time.perf_counter() - t0
+    print(f"[time] phase={name} s={elapsed - (_ENDED_S[0] - ended0):.1f}", flush=True)
+    _ENDED_S[0] = ended0 + elapsed
+    return out
 
 
 def phase_device(torch):
@@ -653,24 +681,28 @@ def phase_chunk_loop(torch, np, device, times):
 
 
 def _device_busy(torch, fn, pivots: int):
-    """torch.profiler over ``fn``: device milliseconds per pivot summed over
-    CUDA kernels, kernel launches, and the five costliest kernels."""
+    """torch.profiler (CUDA activity only) over ``fn``: device milliseconds
+    per pivot summed over the device's events (kernels, copies, sets),
+    their count (the launches), and the five costliest kernels by name.
+    The raw Kineto events are read: building the profiler's Python events
+    (``key_averages``) for a chunk of 60,000 launches takes longer than
+    the chunk itself."""
+    from collections import defaultdict
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0
-        )
-
-    busy_ms = sum(device_us(e) for e in kernels) / 1e3 / pivots
-    launches = sum(e.count for e in kernels)
-    top = sorted(kernels, key=device_us, reverse=True)[:5]
-    return busy_ms, launches, [(e.key[:40], device_us(e) / 1e3 / pivots) for e in top]
+    by_name = defaultdict(float)
+    launches = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            by_name[e.name()] += e.duration_ns() / 1e6
+            launches += 1
+    busy_ms = sum(by_name.values()) / pivots
+    top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:5]
+    return busy_ms, launches, [(name[:40], ms / pivots) for name, ms in top]
 
 
 _SHAPES = {}
@@ -1432,6 +1464,7 @@ def _solve_mknap(torch, np, label, cfg, min_in_batch, tally, **limits):
         single_solves=tally["single_solves"],
         wall_s=f"{wall:.3f}", certify_s=f"{tally['certify_s']:.3f}",
         certify_share=f"{tally['certify_s'] / wall:.3f}",
+        **{k: tally[k] for k in ("blocked_wave_after_nodes",) if k in tally},
     )
     return mip
 
@@ -1440,15 +1473,20 @@ def _solve_mknap(torch, np, label, cfg, min_in_batch, tally, **limits):
 # H100 (383 nodes; PERF.md), the others fell back to the single-LP driver.
 _MIN_IN_BATCH_F32 = 16
 
+# mip/real's node limit: on an H100 the first 64-wide wave that launched the
+# blocked kernel began after 255 solved nodes (PERF.md), and a wave takes
+# nodes while nodes_solved + len(wave) < node_limit, so 255 + 64 is the
+# least limit that still runs that wave whole.
+_MIP_REAL_NODES = 319
+
 
 def phase_mip_real(torch, np):
     """solve_mip in its default configuration (f32; Gomory and cover cuts,
     strong branching, the rounding dive) on the Chu-Beasley knapsack, 64
-    nodes a wave, cut at 384 nodes (_solve_mknap's checks).  The node
-    count, not the clock, ends it, so that every host reaches a whole wave
-    of node LPs too deep for the resident kernel (it runs the blocked one;
-    none came in the 255 nodes a slow host reached in 90 s); 300 s only
-    stop a runaway.  The
+    nodes a wave, cut at _MIP_REAL_NODES nodes (_solve_mknap's checks).
+    The node count, not the clock, ends it, so that every host reaches the
+    first whole wave of node LPs too deep for the resident kernel (it runs
+    the blocked one); 300 s only stop a runaway.  The
     inputs of the first launch of each batched-pivot kernel on a whole
     node wave (its cold batch) and of the first scan launch inside a batch
     (a node LP that
@@ -1464,13 +1502,27 @@ def phase_mip_real(torch, np):
     def wave(A, *_rest):  # a whole node wave (strong branching's are narrower)
         return A.shape[0] == 64
 
+    def blocked_wave(A, *_rest):
+        # Also the nodes solved before this wave: its node count at least
+        # that plus 64 is the least node_limit that reaches it.
+        if not wave(A):
+            return False
+        frame, outer = sys._getframe(), None
+        while frame is not None:
+            if frame.f_code.co_name == "solve_mip" and "wave" in frame.f_locals:
+                outer = frame
+            frame = frame.f_back
+        if outer is not None:
+            tally["blocked_wave_after_nodes"] = outer.f_locals["result"].nodes_solved
+        return True
+
     with _keeping_inputs(batch_pivot, "batched_pivot_chunk", kept, when=wave), \
             _keeping_inputs(batch_pivot, "batched_pivot_chunk_blocked", kept,
-                            when=wave), \
+                            when=blocked_wave), \
             _keeping_inputs(kernels, "fused_price_scan", kept,
                             when=lambda *_args: tally.get("inside", 0) > 0):
         _solve_mknap(torch, np, "mip/real", SolverConfig(), _MIN_IN_BATCH_F32,
-                     tally, batch_width=64, node_limit=384, time_limit_s=300)
+                     tally, batch_width=64, node_limit=_MIP_REAL_NODES, time_limit_s=300)
     missing = {"batched_pivot_chunk", "batched_pivot_chunk_blocked",
                "fused_price_scan"} - set(kept)
     _check(not missing, f"mip/real never launched {sorted(missing)}")
@@ -1684,11 +1736,12 @@ def phase_first_order_pdhg(torch, np, device):
     )
 
 
-def phase_lu_real(torch):
+def phase_lu_real(torch, found):
     """main/real's LP through solve_general_form on the LU engine: certified,
     the pinned digest; pivots, refactorizations, ms per pivot; then one
     phase-2 chunk of that solve replayed under the profiler for launches
-    and device-busy time per pivot."""
+    and device-busy time per pivot.  Leaves the result and its ms per pivot
+    in ``found`` for mesh/lu."""
     from relp_tpu_torch.config import SolverConfig
     from relp_tpu_torch.simplex import SolveStatus, engine, solve_general_form
     from relp_tpu_torch.testing import (
@@ -1698,12 +1751,7 @@ def phase_lu_real(torch):
     )
 
     kept, calls = {}, []
-
-    def twentieth(*_args):  # keep the 20th chunk's inputs for the replay
-        calls.append(1)
-        return len(calls) == 20
-
-    with _keeping_inputs(engine.LUEngine, "run_chunk", kept, when=twentieth):
+    with _keeping_profiled_chunk(engine.LUEngine, kept, calls):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result, solution = solve_general_form(generated_lp(**REAL_SIZE),
@@ -1714,20 +1762,9 @@ def phase_lu_real(torch):
            f"lu/real: {result.status} certified={result.stats.certified}")
     digest = hashlib.sha256(str(solution.objective_value).encode()).hexdigest()
     _check(digest == REAL_SIZE_OBJECTIVE_SHA256, f"lu/real digest {digest}")
-    _check("run_chunk" in kept, f"lu/real: {len(calls)} chunks, fewer than 20")
     pivots = result.stats.iterations  # both phases' pivots
     solve_s = result.stats.wall_time_s - result.stats.certify_time_s
-    (self, state, *args), kwargs = kept["run_chunk"]
-    run_chunk = engine.LUEngine.run_chunk
-    out = run_chunk(self, state, *args, **kwargs)
-    chunk_pivots = int(out.iteration) - int(state.iteration)
-    _check(chunk_pivots > 0, "lu/real: the replayed chunk took no pivot")
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    int(run_chunk(self, state, *args, **kwargs).iteration)
-    chunk_ms = (time.perf_counter() - t1) * 1e3
-    busy_ms, launches, top = _device_busy(
-        torch, lambda: int(run_chunk(self, state, *args, **kwargs).iteration), chunk_pivots)
+    replay = _Replay(torch, "lu/real", kept, calls)
     _line(
         "lu/real", m=REAL_SIZE["m"], n=REAL_SIZE["n"], status=result.status.value,
         certified=True, digest_ok=True, pivots=result.stats.iterations,
@@ -1738,16 +1775,64 @@ def phase_lu_real(torch):
         certify_s=f"{result.stats.certify_time_s:.3f}",
         solve_ms_per_pivot=f"{solve_s / pivots * 1e3:.4f}",
     )
-    _line(
-        "lu/profile", chunk=20, chunk_pivots=chunk_pivots,
-        chunk_ms_per_pivot=f"{chunk_ms / chunk_pivots:.4f}",
-        device_busy_ms_per_pivot=f"{busy_ms:.4f}" if busy_ms else "not measured",
-        kernel_launches_per_pivot=f"{launches / chunk_pivots:.1f}",
-        top_kernels=";".join(f"{name}:{ms:.4f}ms" for name, ms in top),
-    )
+    found.update(result=result, solve_ms_per_pivot=solve_s / pivots * 1e3, replay=replay)
+    _line("lu/profile", chunk=_PROFILED_CHUNK, **replay.fields())
 
-# The chunk of df32/real replayed under the profiler (lu/real's is the 20th).
+# The chunk of lu/real, df32/real and mesh/lu replayed under the profiler.
 _PROFILED_CHUNK = 20
+
+
+def _keeping_profiled_chunk(engine_cls, kept, calls):
+    """``_keeping_inputs`` of ``engine_cls.run_chunk``'s _PROFILED_CHUNK-th
+    call, each call appended to ``calls``."""
+
+    def profiled(*_args):
+        calls.append(1)
+        return len(calls) == _PROFILED_CHUNK
+
+    return _keeping_inputs(engine_cls, "run_chunk", kept, when=profiled)
+
+
+class _Replay:
+    """A kept chunk replayed (its solve has just warmed the allocator): its
+    pivots, collectives and host ms per pivot in a first run, device-busy
+    ms, kernel launches and the costliest kernels per pivot in a second
+    under the profiler."""
+
+    def __init__(self, torch, label, kept, calls):
+        from relp_tpu_torch.parallel import sharded
+
+        _check("run_chunk" in kept,
+               f"{label}: {len(calls)} chunks, fewer than {_PROFILED_CHUNK}")
+        (engine, state, *args), kwargs = kept["run_chunk"]
+
+        def run():
+            # The class's own run_chunk: the keeping wrapper is gone by now.
+            return int(type(engine).run_chunk(engine, state, *args, **kwargs).iteration)
+
+        before = sharded.COLLECTIVES
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        self.pivots = run() - int(state.iteration)  # the host read ends the timing
+        elapsed = time.perf_counter() - t
+        self.collectives = sharded.COLLECTIVES - before
+        _check(self.pivots > 0, f"{label}: the replayed chunk took no pivot")
+        self.ms_per_pivot = elapsed * 1e3 / self.pivots
+        self.busy_ms, launches, self.top = _device_busy(torch, run, self.pivots)
+        self.launches_per_pivot = launches / self.pivots
+
+    def fields(self):
+        idle = 1.0 - self.busy_ms / self.ms_per_pivot if self.busy_ms else None
+        return dict(
+            chunk_pivots=self.pivots,
+            chunk_ms_per_pivot=f"{self.ms_per_pivot:.4f}",
+            device_busy_ms_per_pivot=(f"{self.busy_ms:.4f}" if self.busy_ms
+                                      else "not measured"),
+            device_idle_share=f"{idle:.3f}" if idle is not None else "not measured",
+            kernel_launches_per_pivot=f"{self.launches_per_pivot:.1f}",
+            top_kernels=";".join(f"{name}:{ms:.4f}ms" for name, ms in self.top),
+        )
+
 
 
 def _hold_df_bitwise(torch, np, label, state, A):
@@ -1796,12 +1881,7 @@ def phase_df32_real(torch, np):
     )
 
     kept, calls = {}, []
-
-    def profiled(*_args):  # keep this chunk's inputs for the replay
-        calls.append(1)
-        return len(calls) == _PROFILED_CHUNK
-
-    with _keeping_inputs(engine.DoubleFloatEngine, "run_chunk", kept, when=profiled), \
+    with _keeping_profiled_chunk(engine.DoubleFloatEngine, kept, calls), \
             _keeping_inputs(df_kernels, "fused_price_scan", kept):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1817,23 +1897,9 @@ def phase_df32_real(torch, np):
     digest = hashlib.sha256(str(solution.objective_value).encode()).hexdigest()
     _check(digest == REAL_SIZE_OBJECTIVE_SHA256, f"df32/real digest {digest}")
     _check(scan_launches > 0, "df32/real never launched the scan kernel")
-    _check("run_chunk" in kept,
-           f"df32/real: {len(calls)} chunks, fewer than {_PROFILED_CHUNK}")
     pivots = result.stats.iterations
     solve_s = result.stats.wall_time_s - result.stats.certify_time_s
-    (self, state, *args), kwargs = kept["run_chunk"]
-    run_chunk = engine.DoubleFloatEngine.run_chunk
-    out = run_chunk(self, state, *args, **kwargs)
-    chunk_pivots = int(out.iteration) - int(state.iteration)
-    _check(chunk_pivots > 0, "df32/real: the replayed chunk took no pivot")
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    int(run_chunk(self, state, *args, **kwargs).iteration)
-    chunk_ms = (time.perf_counter() - t1) * 1e3
-    busy_ms, launches, top = _device_busy(
-        torch, lambda: int(run_chunk(self, state, *args, **kwargs).iteration),
-        chunk_pivots)
-    idle = 1.0 - busy_ms * chunk_pivots / chunk_ms if busy_ms else None
+    replay = _Replay(torch, "df32/real", kept, calls)
     _line(
         "df32/real", m=REAL_SIZE["m"], n=REAL_SIZE["n"], carry="df32",
         status=result.status.value, certified=True, digest_ok=True,
@@ -1845,15 +1911,8 @@ def phase_df32_real(torch, np):
         certify_share=f"{result.stats.certify_time_s / wall:.3f}",
         solve_ms_per_pivot=f"{solve_s / pivots * 1e3:.4f}",
     )
-    _line(
-        "df32/profile", chunk=_PROFILED_CHUNK, chunk_pivots=chunk_pivots,
-        chunk_ms_per_pivot=f"{chunk_ms / chunk_pivots:.4f}",
-        device_busy_ms_per_pivot=f"{busy_ms:.4f}" if busy_ms else "not measured",
-        device_idle_share=f"{idle:.3f}" if idle is not None else "not measured",
-        kernel_launches_per_pivot=f"{launches / chunk_pivots:.1f}",
-        top_kernels=";".join(f"{name}:{ms:.4f}ms" for name, ms in top),
-    )
-    A_full = args[1]  # run_chunk(state, A_scan, A_full, c, mask, ...)
+    _line("df32/profile", chunk=_PROFILED_CHUNK, **replay.fields())
+    (_engine, state, _A_scan, A_full, *_rest), _kw = kept["run_chunk"]
 
     def holds():
         scan_args, _kw = kept["fused_price_scan"]
@@ -1882,7 +1941,75 @@ _MESH_PDHG_X_REL = 1e-3
 _MESH_PDHG_Y_REL = 1e-6
 
 
-def phase_mesh_world1(torch, np, device, main_result, window):
+def phase_mesh_lu(torch, mesh, lu, window):
+    """main/real's LP on the LU engine column-sharded over mesh/world1's
+    (1, 1) mesh (solve_relaxation(mesh=..., basis_inverse="lu")), while its
+    NCCL world of one is up: certified, main/real's digest, lu/real's pivots
+    and basis exactly (``lu``: what lu/real found); collectives and solve
+    ms per pivot beside lu/real's; then the solve's 20th chunk replayed
+    under the profiler for launches and device-busy time per pivot, as
+    lu/profile does.  The path's launch counts (``window["mesh/lu"]``)
+    cover the solve only."""
+    from relp_tpu_torch.config import SolverConfig
+    from relp_tpu_torch.parallel import sharded
+    from relp_tpu_torch.simplex import SolveStatus, engine, solve_relaxation
+    from relp_tpu_torch.testing import (
+        REAL_SIZE,
+        REAL_SIZE_OBJECTIVE_SHA256,
+        generated_lp,
+    )
+
+    ref = lu["result"]
+    gf = generated_lp(**REAL_SIZE)
+    gf.presolve()
+    md = gf.derive_matrix_data(gf.standardize())
+    kept, calls = {}, []
+    _zero_launch_counts()
+    sharded.COLLECTIVES = 0
+    with _keeping_profiled_chunk(engine.LUEngine, kept, calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = solve_relaxation(md, SolverConfig(basis_inverse="lu"), mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    collectives = sharded.COLLECTIVES
+    window["mesh/lu"] = _launch_counts()
+    _check(result.status is SolveStatus.FINITE_OPTIMUM and result.stats.certified,
+           f"mesh/lu: {result.status} certified={result.stats.certified}")
+    digest = hashlib.sha256(
+        str(_reconstructed_objective(gf, md, result)).encode()).hexdigest()
+    _check(digest == REAL_SIZE_OBJECTIVE_SHA256, f"mesh/lu digest {digest}")
+    pivots = result.stats.iterations
+    _check(pivots == ref.stats.iterations,
+           f"mesh/lu: {pivots} pivots, lu/real {ref.stats.iterations}")
+    _check(result.basis == ref.basis, "mesh/lu: another basis than lu/real")
+    solve_s = result.stats.wall_time_s - result.stats.certify_time_s
+    replay = _Replay(torch, "mesh/lu", kept, calls)
+    _check(kept["run_chunk"][0][0].shard is not None,
+           "mesh/lu: the LU engine ran without its shard")
+    _line(
+        "mesh/lu", problem="main/real", mesh="1x1", basis_inverse="lu",
+        status=result.status.value, certified=True, digest_ok=True,
+        same_basis=True, pivots=pivots, lu_real_pivots=ref.stats.iterations,
+        phase1_pivots=result.stats.phase1_iterations,
+        refactorizations=result.stats.refactorizations, chunks=result.stats.chunks,
+        escalations=",".join(result.stats.escalations) or "none",
+        collectives=collectives, collectives_per_pivot=f"{collectives / pivots:.3f}",
+        wall_s=f"{wall:.3f}", solve_s=f"{solve_s:.3f}",
+        certify_s=f"{result.stats.certify_time_s:.3f}",
+        solve_ms_per_pivot=f"{solve_s / pivots * 1e3:.4f}",
+        lu_real_solve_ms_per_pivot=f"{lu['solve_ms_per_pivot']:.4f}",
+    )
+    _line(
+        "mesh/lu", profiled_chunk=_PROFILED_CHUNK,
+        chunk_collectives_per_pivot=f"{replay.collectives / replay.pivots:.3f}",
+        **replay.fields(),
+        lu_real_chunk_ms_per_pivot=f"{lu['replay'].ms_per_pivot:.4f}",
+        lu_real_launches_per_pivot=f"{lu['replay'].launches_per_pivot:.1f}",
+    )
+
+
+def phase_mesh_world1(torch, np, device, main_result, window, lu):
     """The mesh (relp_tpu_torch.parallel) as a world of one over NCCL: one
     card shows the sharded code and its collectives, not a scale-out.
     initialize_multihost() with no torchrun environment, make_mesh((1, 1));
@@ -1897,8 +2024,10 @@ def phase_mesh_world1(torch, np, device, main_result, window):
     collectives and ms per pivot of the sharded chunk loop beside the
     unsharded one at the chunk loop's problem.  The path's launch counts (``window["mesh/world1"]``)
     cover the three mesh solves only: the unsharded runs and the timing
-    loops run outside that window.  The process group is destroyed at the
-    end.  Returns the scan kernel's check on the inputs this path gave it."""
+    loops run outside that window.  Then mesh/lu (``phase_mesh_lu``, with
+    its own window) in the same world; the process group is destroyed at
+    the end.  Returns the scan kernel's check on the inputs this path gave
+    it."""
     import torch.distributed as dist
 
     from relp_tpu_torch.config import SolverConfig
@@ -2106,6 +2235,7 @@ def phase_mesh_world1(torch, np, device, main_result, window):
                                               else "not measured"),
             sharded_device_idle_share=f"{idle:.3f}" if idle is not None else "not measured",
         )
+        _timed("mesh/lu", phase_mesh_lu, torch, mesh, lu, window)
     finally:
         dist.destroy_process_group()
     _check("fused_price_scan" in kept, "mesh/world1 never called the scan")
@@ -2123,27 +2253,31 @@ def phase_mesh_world1(torch, np, device, main_result, window):
 
 def phase_other_modes(torch, np, device, knap6_pivots, main_result):
     """The other solve modes, each path's launch counts from 0 just before
-    it and read just after it; then each kernel against its plain version
+    it and read just after it (mesh/lu, run inside mesh/world1's process
+    group, counts its own); then each kernel against its plain version
     on the inputs a path gave it (launches not counted): mip/real's, and
     the scan's on df32/real and mesh/world1.  Returns ({path: launches by
     kernel}, {kernel: mip/real's error}, {path: the scan's error})."""
-    by_path, replays, window = {}, {}, {}
+    by_path, replays, window, lu = {}, {}, {}, {}
     for path, run in (
         ("mip/small", lambda: phase_mip_small(knap6_pivots)),
         ("mip/real", lambda: phase_mip_real(torch, np)),
         ("mip/real64", lambda: phase_mip_real64(torch, np)),
         ("first_order/real", lambda: phase_first_order_real(torch)),
         ("first_order/pdhg", lambda: phase_first_order_pdhg(torch, np, device)),
-        ("lu/real", lambda: phase_lu_real(torch)),
+        ("lu/real", lambda: phase_lu_real(torch, lu)),
         ("df32/real", lambda: phase_df32_real(torch, np)),
         ("mesh/world1", lambda: phase_mesh_world1(torch, np, device, main_result,
-                                                  window)),
+                                                  window, lu)),
     ):
         _zero_launch_counts()
-        replays[path] = run()
+        replays[path] = _timed(path, run)
         # A phase that also runs what is not its path counts its own window.
         by_path[path] = window.pop(path) if path in window else _launch_counts()
         _line("launches", path=path, **by_path[path])
+        for nested in list(window):  # a path run inside this phase
+            by_path[nested] = window.pop(nested)
+            _line("launches", path=nested, **by_path[nested])
     for path in ("mip/small", "mip/real", "mip/real64", "df32/real", "mesh/world1"):
         _check(by_path[path]["fused_price_scan"] > 0,
                f"{path} never launched the scan kernel")
@@ -2182,34 +2316,34 @@ def main() -> int:
     from relp_tpu_torch.ops import batch_pivot, price_scan
     from relp_tpu_torch.testing import FAMILIES, FAMILY_OBJECTIVES_SHA256
 
-    device = phase_device(torch)
-    phase_build()
-    main_shape, errors, times = phase_kernel(torch, np, device)
-    probes = phase_probe(torch, device)
-    batch_errors, batch_times = phase_batch_kernel(torch, np)
+    device = _timed("device", phase_device, torch)
+    _timed("build", phase_build)
+    main_shape, errors, times = _timed("kernel", phase_kernel, torch, np, device)
+    probes = _timed("probe", phase_probe, torch, device)
+    batch_errors, batch_times = _timed("batch/kernel", phase_batch_kernel, torch, np)
 
     price_scan.LAUNCHES = 0  # counts from here on are the main path's
-    knap6_pivots = phase_main_small(torch)
-    main_result = phase_main_real(torch, np)
+    knap6_pivots = _timed("main/small", phase_main_small, torch)
+    main_result = _timed("main/real", phase_main_real, torch, np)
     launches = price_scan.LAUNCHES
     _check(launches > 0, "the main path never launched the scan kernel")
 
-    phase_chunk_loop(torch, np, device, times)
+    _timed("chunk", phase_chunk_loop, torch, np, device, times)
 
     # The scenario-batch path, once per family; the counts are each run's.
     batch_launches = {}
     for name, counter in (("resident", "LAUNCHES_RESIDENT"),
                           ("blocked", "LAUNCHES_BLOCKED")):
         batch_pivot.LAUNCHES_RESIDENT = batch_pivot.LAUNCHES_BLOCKED = 0
-        phase_batch_family(torch, np, name, FAMILIES[name],
-                           FAMILY_OBJECTIVES_SHA256[name])
+        _timed(f"batch/{name}", phase_batch_family, torch, np, name, FAMILIES[name],
+               FAMILY_OBJECTIVES_SHA256[name])
         batch_launches[name] = getattr(batch_pivot, counter)
         _check(batch_launches[name] > 0,
                f"the {name} family never launched batch_pivot_kernel<{name}>")
-    phase_batch_memory(torch)
+    _timed("batch/memory", phase_batch_memory, torch)
     batch_pivot.LAUNCHES_RESIDENT = batch_pivot.LAUNCHES_BLOCKED = 0
-    phase_batch_warm(torch, np)
-    phase_batch_chunk(torch, np)
+    _timed("batch/warm", phase_batch_warm, torch, np)
+    _timed("batch/chunk", phase_batch_chunk, torch, np)
 
     by_path, mip_errors, scan_errors = phase_other_modes(
         torch, np, device, knap6_pivots, main_result)

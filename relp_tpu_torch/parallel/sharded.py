@@ -4,8 +4,9 @@
 The (M, N) tableau is split into contiguous blocks of columns over the
 mesh's "col" axis, one ``.contiguous()`` block per rank: A, its scan copy,
 c, the candidate mask and the N-sized state (``d``, ``gamma``,
-``in_basis``).  The carry (``Binv``, ``xB``, ``pi``, ``obj``, ``basis`` and
-the scalars) is replicated, and every rank updates it identically.
+``in_basis``).  The carry (``Binv``, or the LU engine's factors and eta
+ring; ``xB``, ``pi``, ``obj``, ``basis`` and the scalars) is replicated,
+and every rank updates it identically.
 
 The JAX package leaves the collectives to GSPMD.  Here they are written
 out, kept on the device (nothing calls ``.item()``, so a chunk needs no
@@ -20,9 +21,11 @@ host sync), two per pivot:
   with zeros is exact).
 
 At a chunk's exit the basis matrix B (``basis_columns``) is combined the
-same way, so the refactorization sees exact B; the scan, ``recompute_gamma``
-and the reduced costs stay local.  Never pad the simplex's columns: padding
-would change N and with it the modular rotation of the pricing rules.
+same way, so the refactorization (the dense inverse or the LU factors)
+sees exact B; the scan, the LU engine's pricing and Goldfarb products,
+``recompute_gamma`` and the reduced costs stay local.  Never pad the
+simplex's columns: padding would change N and with it the modular
+rotation of the pricing rules.
 """
 
 from __future__ import annotations
@@ -195,15 +198,13 @@ def shard_problem(mesh, A, b, c, candidate_mask):
 
 
 def shard_state(mesh, state, N: Optional[int] = None):
-    """The state with its N-sized members (``in_basis``, ``gamma``, ``d``)
-    cut to this rank's columns; the carry stays replicated."""
+    """The state (a ``SimplexState`` or the LU engine's ``LUState``) with
+    its N-sized members (``in_basis``, ``gamma`` and, where it has one,
+    ``d``) cut to this rank's columns; the carry stays replicated."""
     N = state.in_basis.shape[-1] if N is None else N
     shard = column_shard(mesh, N, state.in_basis.device)
-    return state._replace(
-        in_basis=shard.take(state.in_basis),
-        gamma=shard.take(state.gamma),
-        d=shard.take(state.d),
-    )
+    names = [name for name in ("in_basis", "gamma", "d") if name in state._fields]
+    return state._replace(**{name: shard.take(getattr(state, name)) for name in names})
 
 
 def shard_batch_problem(mesh, A, b, c, candidate_mask, A_scan=None):
@@ -241,10 +242,12 @@ def shard_batch_state(mesh, batch_state):
 
 def sharded_run_chunk(shard: ColumnShard, state, A_scan, A_full, c, candidate_mask,
                       **kwargs):
-    """``relp_tpu_torch.simplex.kernels.run_chunk`` on column-sharded
-    inputs: the same pivots, with the collectives above.  ``shard`` is the
-    ``column_shard`` of the LP's global N (the local blocks do not tell
-    it)."""
+    """``relp_tpu_torch.simplex.kernels.run_chunk`` (or, for an ``LUState``,
+    ``lu.lu_run_chunk``) on column-sharded inputs: the same pivots, with the
+    collectives above.  ``shard`` is the ``column_shard`` of the LP's global
+    N (the local blocks do not tell it)."""
     from relp_tpu_torch.simplex.kernels import run_chunk
+    from relp_tpu_torch.simplex.lu import LUState, lu_run_chunk
 
-    return run_chunk(state, A_scan, A_full, c, candidate_mask, shard=shard, **kwargs)
+    run = lu_run_chunk if isinstance(state, LUState) else run_chunk
+    return run(state, A_scan, A_full, c, candidate_mask, shard=shard, **kwargs)

@@ -18,8 +18,8 @@ Deliberate differences from the JAX driver:
   written out (``relp_tpu_torch.parallel.sharded``); every rank runs the
   same host code on the same replicated state and returns the same result.
   The JAX driver's gates under a mesh hold: no ``host_sparse`` route by
-  "auto", no dual restart of a warm basis, no df32 (it raises).  The LU
-  engine does not run sharded and raises.  The ``host_sparse`` backend is
+  "auto", no dual restart of a warm basis, no df32 (it raises).  Both the
+  dense and the LU engine run sharded.  The ``host_sparse`` backend is
   chosen by ``"auto"`` only on the CPU
   (``host_sparse.should_use_host_sparse``), never on CUDA.
 * The LU engine's state has no ``degen_count`` and no dual iteration, so
@@ -583,11 +583,6 @@ def _solve_relaxation_once(
     device = torch_device(cfg)
     if mesh is not None and cfg.carry == "df32":
         raise ValueError("carry='df32' is a single-device rescue path")
-    if mesh is not None and cfg.basis_inverse == "lu":
-        raise NotImplementedError(
-            "basis_inverse='lu' does not run column-sharded: ROADMAP.md "
-            "Queue 1, 'LUEngine under a mesh'"
-        )
     stats = SolveStats()
     t_start = time.time()
     dtype = _lower_dtype(cfg)

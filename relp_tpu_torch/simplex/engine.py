@@ -241,37 +241,42 @@ class DenseEngine:
 class LUEngine:
     name = "lu"
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, shard=None):
         self.device = device
+        # The lowering's ``parallel.sharded.ColumnShard`` under a mesh, as
+        # for ``DenseEngine``.
+        self.shard = shard
 
     def init_state(self, problem: DeviceProblem, cfg: SolverConfig) -> lu_mod.LUState:
         dtype = working_dtype(cfg)
         dev = self.device
         N = problem.N
+        take = kernels.columns(self.shard, N, dev).take
         basis = problem.initial_basis
         in_basis = np.zeros(N, dtype=bool)
         in_basis[basis] = True
         basis_t = torch.as_tensor(np.asarray(basis, dtype=np.int32), device=dev)
         lu, piv, B0, eta_vals, eta_rows, xB, pi, obj, _residual = lu_mod.lu_refactorize(
-            torch.as_tensor(problem.A, device=dev),
+            torch.as_tensor(take(problem.A), device=dev),
             torch.as_tensor(problem.b, device=dev),
-            torch.as_tensor(problem.c_phase1, device=dev),
+            torch.as_tensor(take(problem.c_phase1), device=dev),
             basis_t,
             eta_capacity=cfg.refactor_period,
+            shard=self.shard,
         )
         zero = _scalar(0, torch.int32, dev)
         return lu_mod.LUState(
             lu=lu, piv=piv, B0=B0, eta_vals=eta_vals, eta_rows=eta_rows,
             eta_count=zero, basis=basis_t, xB=xB, pi=pi, obj=obj,
-            in_basis=torch.as_tensor(in_basis, device=dev),
-            gamma=torch.ones(N, dtype=dtype, device=dev),
+            in_basis=torch.as_tensor(take(in_basis), device=dev),
+            gamma=take(torch.ones(N, dtype=dtype, device=dev)),
             iteration=zero, status=_scalar(RUNNING, torch.int32, dev),
             inner=zero, price_start=zero,
         )
 
     def refactor(self, state, A, b, c, cfg: SolverConfig, stats: SolveStats):
         lu, piv, B0, eta_vals, eta_rows, xB, pi, obj, residual = lu_mod.lu_refactorize(
-            A, b, c, state.basis, eta_capacity=cfg.refactor_period
+            A, b, c, state.basis, eta_capacity=cfg.refactor_period, shard=self.shard
         )
         stats.refactorizations += 1
         state = state._replace(
@@ -290,13 +295,13 @@ class LUEngine:
         return lu_mod.lu_run_chunk(
             state, A_scan, A_full, c, candidate_mask, pricing=mode,
             chunk=cfg.chunk_size, opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol,
-            degen_tol=cfg.feas_tol, stop_at_zero=stop_at_zero,
+            degen_tol=cfg.feas_tol, stop_at_zero=stop_at_zero, shard=self.shard,
         )
 
     def recompute_gamma(self, state, A_scan):
         # gamma_j = 1 + ||B^-1 a_j||^2 from the B0 factors alone, which is
         # right only with an empty ring: a live eta would give weights of a
-        # stale basis.
+        # stale basis.  Column by column, so a shard's block is its own.
         assert int(state.eta_count) == 0, (
             "LUEngine.recompute_gamma requires a fresh factorization "
             "(empty eta ring); refactor first"
@@ -309,28 +314,31 @@ class LUEngine:
         e_r = torch.zeros(A.shape[0], dtype=A.dtype, device=A.device)
         e_r[r] = 1.0
         rho = lu_mod.lu_btran(state, e_r, int(state.eta_count))
-        return torch.matmul(rho, A).cpu().numpy()
+        cols = kernels.columns(self.shard, A.shape[1], A.device)
+        return cols.gather(torch.matmul(rho, A)).cpu().numpy()
 
     def forced_pivot(self, state, A, c, q: int, r: int):
-        return _lu_forced_pivot(state, A, c, q, r)
+        return _lu_forced_pivot(state, A, c, q, r, self.shard)
 
 
-def _lu_forced_pivot(state, A, c, q: int, r: int):
+def _lu_forced_pivot(state, A, c, q: int, r: int, shard=None):
     """Unconditional pivot for the LU engine (zero-level artificial
     drive-out): append the eta and update the bookkeeping.  q and r are
-    host ints; the driver refactorizes before the ring would overflow."""
+    host ints (q global).  ``_drive_out_artificials`` refactorizes before
+    the ring would overflow."""
+    cols = kernels.columns(shard, A.shape[1], A.device)
     k = int(state.eta_count)
-    a_q = A[:, q]
+    q_t = torch.tensor(q, device=A.device)
+    a_q, c_q, cB = cols.fetch(A, c, q_t, state.basis)
     w = lu_mod.lu_ftran(state, a_q, k)
-    d_q = c[q] - torch.matmul(state.pi, a_q)
+    d_q = c_q - torch.matmul(state.pi, a_q)
     t = state.xB[r] / w[r]
     xB_new = state.xB - t * w
     xB_new[r] = t  # xB_new is fresh
     leaving = state.basis[r].to(torch.int64).reshape(1)
     basis_new = state.basis.clone()
     basis_new[r] = q
-    in_basis_new = state.in_basis.clone().index_fill_(0, leaving, False)
-    in_basis_new[q] = True
+    in_basis_new = cols.put(cols.put(state.in_basis.clone(), leaving, False), q_t, True)
     eta_vals = state.eta_vals.clone()
     eta_vals[k] = w
     eta_rows = state.eta_rows.clone()
@@ -341,7 +349,7 @@ def _lu_forced_pivot(state, A, c, q: int, r: int):
     e_r = torch.zeros(A.shape[0], dtype=A.dtype, device=A.device)
     e_r[r] = 1.0
     rho_new = lu_mod.lu_btran(state, e_r, k + 1)
-    cB = c.index_select(0, basis_new.to(torch.int64))
+    cB[r] = c_q  # cB is fresh
     return state._replace(
         basis=basis_new,
         xB=xB_new,
@@ -437,11 +445,12 @@ class DoubleFloatEngine:
 
 def make_engine(cfg: SolverConfig, device: torch.device, shard=None):
     """The engine of ``cfg``; ``shard`` is the lowering's column shard under
-    a mesh, which only the dense engine takes."""
-    if shard is not None and (cfg.carry == "df32" or cfg.basis_inverse == "lu"):
-        raise ValueError("only the dense engine runs column-sharded")
+    a mesh, which the dense and LU engines take (the df32 carry is a
+    single-device rescue path)."""
+    if shard is not None and cfg.carry == "df32":
+        raise ValueError("carry='df32' is a single-device rescue path")
     if cfg.carry == "df32":
         return DoubleFloatEngine(device)
     if cfg.basis_inverse == "lu":
-        return LUEngine(device)
+        return LUEngine(device, shard)
     return DenseEngine(device, shard)

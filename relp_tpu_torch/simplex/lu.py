@@ -25,6 +25,14 @@ Differences from the JAX code, and why:
   keeps its old value unless the pivot is taken; the index of the write is
   clamped into the ring, so a full ring (where no pivot is taken) is never
   written out of range.
+* Column sharding (``shard``, a ``relp_tpu_torch.parallel.sharded.
+  ColumnShard``) is explicit, as in ``kernels``: A, c, the mask, ``in_basis``
+  and ``gamma`` hold this rank's columns and the factors, the ring and the
+  carry are replicated.  Pricing and the Goldfarb products stay local; the
+  entering choice and the entering column with c_q and c_B are combined
+  across ranks (two collectives a pivot), and B at refactorization.
+  Without one, ``kernels.LocalColumns`` gives the same interface with no
+  collective.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from relp_tpu_torch.simplex.kernels import (
     _select_entering,
     _select_leaving,
     _status,
+    columns,
 )
 from relp_tpu_torch.simplex.state import OPTIMAL, RUNNING, UNBOUNDED
 
@@ -161,21 +170,21 @@ def lu_btran(state: LUState, y, steps: int):
     return _lu_solve(state.lu, state.piv, state.B0, y, trans=1)
 
 
-def lu_refactorize(A, b, c, basis, *, eta_capacity: int):
+def lu_refactorize(A, b, c, basis, *, eta_capacity: int, shard=None):
     """Fresh LU factors of the current basis and an empty eta ring.
 
     Returns (lu, piv, B0, eta_vals, eta_rows, xB, pi, obj, residual) with
     residual = max|B xB - b| / (1 + max|b|); a singular basis gives a
-    non-finite or large residual (``lu_factor_ex`` does not raise).
+    non-finite or large residual (``lu_factor_ex`` does not raise).  With a
+    ``shard``, A and c are this rank's columns and B, c_B come from their
+    owners.
     """
     M = A.shape[0]
-    basis64 = basis.to(torch.int64)
-    B = A.index_select(1, basis64)
+    B, cB = columns(shard, A.shape[1], A.device).basis_columns(A, c, basis)
     lu, piv, _info = torch.linalg.lu_factor_ex(B.to(torch.float32))
     eta_vals = torch.zeros((eta_capacity, M), dtype=A.dtype, device=A.device)
     eta_rows = torch.zeros((eta_capacity,), dtype=torch.int32, device=A.device)
     xB = _lu_solve(lu, piv, B, b, trans=0)
-    cB = c.index_select(0, basis64)
     pi = _lu_solve(lu, piv, B, cB, trans=1)
     obj = torch.matmul(cB, xB)
     residual = (torch.matmul(B, xB) - b).abs().max() / (1.0 + b.abs().max())
@@ -189,12 +198,14 @@ def _e(r: torch.Tensor, M: int, dtype, device) -> torch.Tensor:
 
 def _lu_iteration(
     state: LUState, A_scan, A_full, c, c_scan, candidate_mask, active, steps: int,
-    *, pricing: int, opt_tol: float, pivot_tol: float,
+    *, pricing: int, opt_tol: float, pivot_tol: float, shard=None,
 ) -> LUState:
     """One simplex pivot on the LU + eta state (the JAX package's
     ``make_lu_iteration``), written to the ring in place: the chunk passes
     its own copy.  ``steps`` bounds the live ring slots before this pivot."""
-    M, N = A_scan.shape
+    M = A_scan.shape[0]
+    cols = columns(shard, A_scan.shape[1], A_scan.device)
+    N = cols.N
     K = state.eta_vals.shape[0]
     scan_dtype = A_scan.dtype
     low_precision_scan = scan_dtype != A_full.dtype
@@ -208,13 +219,13 @@ def _lu_iteration(
     eligible = candidate_mask & ~state.in_basis & (d < -threshold)
     gamma = state.gamma.to(scan_dtype)
     q, any_eligible = _select_entering(
-        d, gamma, eligible, pricing, N, start=state.price_start
+        d, gamma, eligible, pricing, N, start=state.price_start, shard=shard
     )
     q1 = q.reshape(1)
 
-    a_q = A_full.index_select(1, q1).reshape(M)
+    a_q, c_q, cB = cols.fetch(A_full, c, q, state.basis)
     w = lu_ftran(state, a_q, steps)
-    d_q_full = _at(c, q) - torch.matmul(state.pi, a_q)
+    d_q_full = c_q - torch.matmul(state.pi, a_q)
     if low_precision_scan:
         any_eligible = any_eligible & (d_q_full < -opt_tol)
 
@@ -233,9 +244,8 @@ def _lu_iteration(
 
     leaving = _at(state.basis, r).to(torch.int64).reshape(1)
     basis_new = state.basis.clone().index_copy_(0, r1, q1.to(torch.int32))
-    in_basis_new = (
-        state.in_basis.clone().index_fill_(0, leaving, False).index_fill_(0, q1, True)
-    )
+    in_basis_new = cols.put(cols.put(state.in_basis.clone(), leaving, False), q, True)
+    cB_new = cB.index_copy_(0, r1, c_q.reshape(1))  # cB is fresh
 
     # Append the eta (w, r) at slot eta_count, in place on the chunk's copy
     # of the ring; without a pivot the slot keeps its value.
@@ -251,7 +261,7 @@ def _lu_iteration(
     e_r = _e(r, M, A_full.dtype, A_full.device)
     rho_new = lu_btran(state._replace(eta_count=state.eta_count + 1), e_r, min(K, steps + 1))
     pi_new = state.pi + d_q_full * rho_new
-    obj_new = torch.matmul(c.index_select(0, basis_new.to(torch.int64)), xB_new)
+    obj_new = torch.matmul(cB_new, xB_new)
 
     if pricing == PRICE_STEEPEST:
         gamma_q_val = (1.0 + torch.matmul(w, w)).to(scan_dtype)
@@ -260,14 +270,10 @@ def _lu_iteration(
         inner = torch.matmul(v, A_scan)
         gamma_new = gamma - 2.0 * abar * inner + (abar * abar) * gamma_q_val
         gamma_new = torch.maximum(gamma_new, 1.0 + abar * abar)
-        gamma_new.index_copy_(
-            0,
-            leaving,
-            torch.clamp_min(
-                gamma_q_val / (safe_w_r * safe_w_r).to(scan_dtype), 1.0
-            ).reshape(1),
+        g_leaving = torch.clamp_min(
+            gamma_q_val / (safe_w_r * safe_w_r).to(scan_dtype), 1.0
         )
-        gamma_new.index_fill_(0, q1, 1.0)
+        gamma_new = cols.put(cols.put(gamma_new, leaving, g_leaving), q, 1.0)
         gamma_new = gamma_new.to(state.gamma.dtype)
     else:
         gamma_new = state.gamma
@@ -303,9 +309,12 @@ def lu_run_chunk(
     pivot_tol: float,
     degen_tol: float,
     stop_at_zero: bool = False,
+    shard=None,
 ) -> LUState:
     """Run pivots until the eta ring fills, the chunk budget is spent, or the
-    phase terminates; one host read (the ring's fill) per chunk."""
+    phase terminates; one host read (the ring's fill) per chunk.  With a
+    ``shard`` the column-sized inputs are this rank's block; the replicated
+    carry makes every rank take the same branches."""
     K = state.eta_vals.shape[0]
     state = state._replace(
         inner=torch.zeros((), dtype=torch.int32, device=c.device),
@@ -324,5 +333,6 @@ def lu_run_chunk(
         state = _lu_iteration(
             state, A_scan, A_full, c, c_scan, candidate_mask, active,
             min(K, eta0 + i), pricing=pricing, opt_tol=opt_tol, pivot_tol=pivot_tol,
+            shard=shard,
         )
     return state

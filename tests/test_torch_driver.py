@@ -173,20 +173,38 @@ def test_cuda_is_never_a_silent_fallback():
         solve_general_form(SIMPLEX_SMALL["basic_max_lp"][0](PORT), SolverConfig(pad_to=8))
 
 
-@pytest.mark.parametrize(
-    "overrides, match",
-    [(dict(basis_inverse="lu"), "LUEngine under a mesh")],
-)
-def test_unported_options_raise(overrides, match):
-    """What the port still refuses: the LU engine under a mesh (ROADMAP
-    Queue 1).  carry="df32" is ported (tests/test_torch_df32.py); the
-    refusal comes before the mesh is used."""
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_lu_engine_under_a_mesh_carries_its_shard(dtype):
+    """make_engine builds the LU engine with the lowering's column shard,
+    as it does the dense engine; its state's column-sized members are the
+    shard's block, and its tableau row is gathered to the full width (a
+    gloo world of one in this process).  The df32 carry under a shard
+    still raises."""
+    import torch
+
+    from relp_tpu_torch.parallel import column_shard
+    from relp_tpu_torch.simplex.engine import LUEngine, make_engine
+    from relp_tpu_torch.simplex.lowering import lower_provider
+    from tests.test_torch_mesh import world_of_one
+
     gf = SIMPLEX_SMALL["basic_max_lp"][0](PORT)
-    data = gf.derive_matrix_data(gf.standardize())
-    with pytest.raises(NotImplementedError, match=match):
-        solve_relaxation(
-            data, SolverConfig(pad_to=8, platform="cpu", **overrides), mesh=object()
-        )
+    problem = lower_provider(gf.derive_matrix_data(gf.standardize()),
+                             dtype=np.dtype(dtype).type, pad_to=8)
+    device = torch.device("cpu")
+    cfg = SolverConfig(pad_to=8, platform="cpu", basis_inverse="lu", dtype=dtype)
+    A = torch.as_tensor(problem.A)
+    plain = LUEngine(device)
+    assert make_engine(cfg, device).shard is None
+    with world_of_one() as mesh:
+        shard = column_shard(mesh, problem.N, device)
+        engine = make_engine(cfg, device, shard)
+        assert isinstance(engine, LUEngine) and engine.shard is shard
+        state = engine.init_state(problem, cfg)
+        assert state.in_basis.shape == state.gamma.shape == (shard.n,)
+        np.testing.assert_array_equal(engine.tableau_row(state, shard.take(A), 0),
+                                      plain.tableau_row(plain.init_state(problem, cfg), A, 0))
+        with pytest.raises(ValueError, match="single-device"):
+            make_engine(SolverConfig(pad_to=8, platform="cpu", carry="df32"), device, shard)
 
 
 def test_mesh_raises():

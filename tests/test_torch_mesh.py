@@ -17,11 +17,18 @@ port and the JAX package computed here:
   objectives, bases and iterations;
 * ``pdhg_solve(mesh=(2,2))`` on tests/test_firstorder.py's 13x37 LP:
   converged, objective and primal residual within 1e-6;
-* ``solve_mip(mesh=(1,2))`` on knap6: -30;
+* ``solve_mip(mesh=(1,2))`` on knap6: -30, on either engine;
 * ties across ranks: the lowest global index wins, a NaN wins;
-* a mesh shape that does not hold the world raises ``ValueError``.
+* a mesh shape that does not hold the world raises ``ValueError``;
+* the LU engine (``basis_inverse="lu"``): its sharded chunk in f64, every
+  pricing rule, walks the unsharded LU chunk's (q, r) sequence, its state
+  within 1e-12 relative, on the LP and on [A, A] (every key tied across
+  ranks); its ``solve_relaxation(mesh=...)`` on ``_provider(6)`` and knap6
+  gives the unsharded port's verdict and ``relp_tpu``'s LU engine's over
+  an 8-device mesh, with a full and a bfloat16 scan.
 
-A world of one runs in this process (gloo) and equals the unsharded port.
+A world of one runs in this process (gloo), on either engine, and equals
+the unsharded port.
 """
 
 import contextlib
@@ -76,7 +83,8 @@ from relp_tpu_torch.io import load_general_form
 from relp_tpu_torch.mip import solve_mip
 from relp_tpu_torch.parallel import solve_batch
 from relp_tpu_torch.simplex import kernels, solve_relaxation
-from relp_tpu_torch.simplex.engine import DenseEngine
+from relp_tpu_torch.simplex import lu as lu_mod
+from relp_tpu_torch.simplex.engine import DenseEngine, LUEngine
 from relp_tpu_torch.simplex.lowering import lower_provider
 from relp_tpu_torch.simplex.state import RUNNING
 from tests.test_torch_host_copy import twin
@@ -172,9 +180,84 @@ def chunk_case():
     return result
 
 
-def relaxation_case():
+def _lu_walk(problem, A, c, mask, duplicate=False):
+    # The LU chunk from the phase-1 start, sharded and unsharded, every
+    # pricing rule: the (q, r) sequence of 40 one-pivot chunks each way,
+    # then one 40-pivot chunk each way and its state side by side.
+    # duplicate: the tableau [A, A], every key tied across ranks.
+    cfg = SolverConfig(platform="cpu", dtype="float64", pad_to=8, refactor_period=64)
+    engine = LUEngine(torch.device("cpu"))
+    start0 = engine.init_state(problem, cfg)
+    if duplicate:
+        A, c, mask = (torch.cat([v, v], dim=-1) for v in (A, c, mask))
+        start0 = start0._replace(in_basis=torch.cat([start0.in_basis,
+                                                     torch.zeros_like(start0.in_basis)]),
+                                 gamma=torch.cat([start0.gamma, start0.gamma]))
+    N = A.shape[1]
     mesh = make_mesh((1, world))
-    cfg = SolverConfig(**CPU)
+    shard = column_shard(mesh, N, "cpu")
+    A_s, _, c_s, mask_s = shard_problem(mesh, A, None, c, mask)
+    result = {}
+    for pricing in range(5):
+        kw = dict(pricing=pricing, opt_tol=1e-9, pivot_tol=1e-9, degen_tol=1e-9,
+                  stop_at_zero=True)
+        start = start0
+        if pricing == kernels.PRICE_STEEPEST:
+            start = engine.recompute_gamma(start, A)
+        # A resume point past the middle: the rotation must use global ids.
+        start = start._replace(price_start=torch.tensor(N // 2 + 1, dtype=torch.int32))
+        seqs = []
+        for sharded in (False, True):
+            s = shard_state(mesh, start, N) if sharded else start
+            seq = []
+            for _ in range(40):
+                before = s.basis.clone()
+                if sharded:
+                    s = sharded_run_chunk(shard, s, A_s, A_s, c_s, mask_s, chunk=1, **kw)
+                else:
+                    s = lu_mod.lu_run_chunk(s, A, A, c, mask, chunk=1, **kw)
+                r = torch.nonzero(s.basis != before).flatten()
+                if r.numel():
+                    seq.append([int(s.basis[r[0]]), int(r[0])])
+                if int(s.status) != RUNNING or float(s.obj) <= 1e-9:
+                    break
+            seqs.append(seq)
+        plain = lu_mod.lu_run_chunk(start, A, A, c, mask, chunk=40, **kw)
+        sh = sharded_run_chunk(shard, shard_state(mesh, start, N), A_s, A_s, c_s, mask_s,
+                               chunk=40, **kw)
+        worst = 0.0
+        for name in ("xB", "pi", "obj", "gamma", "eta_vals"):
+            p, q = getattr(plain, name), getattr(sh, name)
+            if name == "gamma":
+                q = shard.gather(q)
+            floor = 1e-12 * (1.0 + float(p.abs().max()))
+            worst = max(worst, float(((q - p).abs() - 1e-12 * p.abs()).max()) / floor)
+        same_ints = bool(
+            torch.equal(plain.basis, sh.basis)
+            and torch.equal(plain.in_basis, shard.gather(sh.in_basis))
+            and torch.equal(plain.eta_rows, sh.eta_rows)
+            and int(plain.eta_count) == int(sh.eta_count)
+            and int(plain.iteration) == int(sh.iteration)
+            and int(plain.price_start) == int(sh.price_start)
+        )
+        result[str(pricing)] = {"plain": seqs[0], "sharded": seqs[1],
+                                "state_ratio": worst, "same_ints": same_ints,
+                                "pivots": int(plain.iteration), "N": N}
+    return result
+
+
+def lu_chunk_case(duplicate=False):
+    gf = testing.generated_lp(24, 64, 7)
+    gf.presolve()
+    problem = lower_provider(gf.derive_matrix_data(gf.standardize()),
+                             dtype=np.float64, pad_to=8)
+    return _lu_walk(problem, torch.as_tensor(problem.A), torch.as_tensor(problem.c_phase1),
+                    torch.as_tensor(problem.candidate_mask), duplicate)
+
+
+def relaxation_case(**overrides):
+    mesh = make_mesh((1, world))
+    cfg = SolverConfig(**CPU, **overrides)
     return {
         "provider6": verdict(solve_relaxation(parallel._provider(6)[0], cfg, mesh=mesh)),
         "knap6": verdict(solve_relaxation(knap6_md(), cfg, mesh=mesh)),
@@ -197,9 +280,10 @@ def pdhg_case(shape):
             "y_shape": list(y.shape)}
 
 
-def mip_case():
+def mip_case(**overrides):
     gf = load_general_form(KNAP6)
-    mip = solve_mip(gf, SolverConfig(platform="cpu"), mesh=make_mesh((1, world)))
+    mip = solve_mip(gf, SolverConfig(platform="cpu", **overrides),
+                    mesh=make_mesh((1, world)))
     return {"objective": str(mip.objective), "certified": bool(mip.certified)}
 
 
@@ -251,9 +335,13 @@ def bad_shape_case():
 
 
 cases = {"chunk": chunk_case, "relaxation": relaxation_case, "tie": tie_case,
-         "bad_shape": bad_shape_case}
+         "bad_shape": bad_shape_case, "lu_chunk": lu_chunk_case,
+         "lu_tie": lambda: lu_chunk_case(duplicate=True),
+         "lu_relaxation": lambda: relaxation_case(basis_inverse="lu"),
+         "lu_bf16": lambda: relaxation_case(basis_inverse="lu", scan_dtype="bfloat16")}
 if world == 2:
     cases["mip"] = mip_case
+    cases["lu_mip"] = lambda: mip_case(basis_inverse="lu")
     cases["batch_2x1"] = lambda: batch_case((2, 1), (6, 7, 8, 9))
     cases["pdhg_2x1"] = lambda: pdhg_case((2, 1))
 if world == 4:
@@ -326,9 +414,25 @@ def _launch(world: int, out_path: pathlib.Path) -> dict:
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """{world size: the findings of every case}: one launch per size."""
-    tmp = tmp_path_factory.mktemp("mesh")
-    return {world: _launch(world, tmp / f"world{world}.json") for world in (2, 4)}
+    """{world size: the findings of every case}: one launch per size in the
+    whole test run.  pytest-xdist workers share the findings through
+    pytest's base temporary directory under a file lock, so that each
+    worker that runs a case here does not launch its own worlds beside the
+    others."""
+    from filelock import FileLock
+
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent  # shared by every worker of the run
+    shared = base / "torch_mesh_runs"
+    shared.mkdir(exist_ok=True)
+    found = {}
+    with FileLock(str(shared / "lock")):
+        for world in (2, 4):
+            path = shared / f"world{world}.json"
+            found[world] = (json.loads(path.read_text()) if path.exists()
+                            else _launch(world, path))
+    return found
 
 
 def _knap6_md(port: bool):
@@ -402,8 +506,65 @@ def test_pdhg_with_mesh_converges_to_the_unsharded_optimum(runs, case, world):
     assert found["residual"] < 1e-6 * (1 + np.linalg.norm(b))
 
 
-def test_solve_mip_with_mesh_proves_knap6(runs):
-    assert runs[2]["mip"] == {"objective": "-30", "certified": True}
+@pytest.mark.parametrize("case", ["mip", "lu_mip"])
+def test_solve_mip_with_mesh_proves_knap6(runs, case):
+    assert runs[2][case] == {"objective": "-30", "certified": True}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("pricing", range(5))
+def test_sharded_lu_chunk_walks_the_unsharded_pivots(runs, world, pricing):
+    found = runs[world]["lu_chunk"][str(pricing)]
+    assert found["sharded"] == found["plain"] and len(found["plain"]) > 0
+    assert found["same_ints"] and found["pivots"] >= len(found["plain"])
+    assert found["state_ratio"] <= 1.0  # |diff| <= 1e-12 (|x| + 1 + max|x|)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("pricing", range(5))
+def test_lu_ties_across_ranks_take_the_lowest_global_index(runs, world, pricing):
+    """The LU chunk on [A, A]: every key of the first copy ties with its
+    twin on another rank, and the sharded walk is the unsharded one, whose
+    keyed rules enter from the first copy only."""
+    found = runs[world]["lu_tie"][str(pricing)]
+    assert found["sharded"] == found["plain"] and len(found["plain"]) > 0
+    assert found["same_ints"] and found["state_ratio"] <= 1.0
+    if pricing in (0, 1, 2, 3):  # the rotated rule starts past the middle
+        assert all(q < found["N"] // 2 for q, _r in found["plain"])
+
+
+def _jax_lu_mesh_verdict(build):
+    from relp_tpu.parallel import make_mesh as jax_make_mesh
+
+    res = jax_solve_relaxation(build(False), JaxConfig(basis_inverse="lu", **CPU),
+                               mesh=jax_make_mesh((1, 8)))
+    return [res.status.value, str(res.exact_objective), res.basis]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", ["provider6", "knap6"])
+def test_lu_solve_relaxation_with_mesh_matches_unsharded_and_jax(runs, world, name):
+    build = {"provider6": _provider6, "knap6": _knap6_md}[name]
+    plain = solve_relaxation(build(True),
+                             SolverConfig(platform="cpu", basis_inverse="lu", **CPU))
+    sharded = runs[world]["lu_relaxation"][name]
+    assert sharded == _verdict(plain)
+    assert sharded[:3] == _jax_lu_mesh_verdict(build)
+    assert sharded[4] is True
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", ["provider6", "knap6"])
+def test_lu_bfloat16_scan_with_mesh_matches_unsharded(runs, world, name):
+    """scan_dtype="bfloat16": the LU chunk's low-precision pricing branch
+    (the |pi|-scaled eligibility floor and the recheck of the pick) under a
+    shard, then the full-precision polish."""
+    build = {"provider6": _provider6, "knap6": _knap6_md}[name]
+    plain = solve_relaxation(build(True), SolverConfig(
+        platform="cpu", basis_inverse="lu", scan_dtype="bfloat16", **CPU))
+    sharded = runs[world]["lu_bf16"][name]
+    assert sharded == _verdict(plain)
+    assert sharded[4] is True
 
 
 @pytest.mark.parametrize("world", WORLDS)
@@ -420,10 +581,11 @@ def test_a_mesh_shape_that_does_not_hold_the_world_raises(runs, world):
     assert runs[world]["jax_loaded"] == []  # the workers ran the port alone
 
 
-def test_world_of_one_in_process_equals_unsharded():
+@pytest.mark.parametrize("basis_inverse", ["dense", "lu"])
+def test_world_of_one_in_process_equals_unsharded(basis_inverse):
     """initialize_multihost with no arguments (no torchrun environment) is a
-    world of one; a (1, 1) mesh solves knap6 and _provider(6) as the
-    unsharded port does, and a shape of two ranks raises."""
+    world of one; a (1, 1) mesh solves knap6 and _provider(6) on either
+    engine as the unsharded port does, and a shape of two ranks raises."""
     import torch.distributed as dist
 
     from relp_tpu_torch.parallel import make_mesh, sharded
@@ -432,7 +594,7 @@ def test_world_of_one_in_process_equals_unsharded():
         assert dist.get_world_size() == 1 and dist.get_backend() == "gloo"
         with pytest.raises(ValueError):
             make_mesh((1, 2))
-        cfg = SolverConfig(platform="cpu", **CPU)
+        cfg = SolverConfig(platform="cpu", basis_inverse=basis_inverse, **CPU)
         for build in (_knap6_md, _provider6):
             sharded.COLLECTIVES = 0
             assert _verdict(solve_relaxation(build(True), cfg, mesh=mesh)) == \
