@@ -17,9 +17,13 @@ Takes no arguments and needs no network.  Phases, one line each (or more):
                    batched-pivot kernels at the families' shapes and of the
                    probe's two products);
   3. kernel        fused_price_scan against fused_price_scan_reference at
-                   several shapes and at the main path's, f32 / f64 / bf16,
-                   with CUDA-event times, and torch.matmul(P, A) (TF32 off,
-                   the product without the d/gamma epilogue) as yardstick;
+                   the node-LP class's small shapes, 1024 x 5120 and the
+                   main path's shape, in f32, f64 and bf16 (two launches
+                   bitwise equal), with CUDA-graph times warm and L2-cold,
+                   the bound and its shares, and torch.matmul(P, A) (TF32
+                   off, the product without the d/gamma epilogue) as
+                   yardstick in the same L2 state, beside the card's name
+                   and power limit;
   4. probe         the precision probe (relp_tpu_torch.tools.
                    probe_dot_precision): single-pass TF32 above 1e-6
                    relative error, 3xTF32 and the outer product within it;
@@ -43,7 +47,9 @@ Takes no arguments and needs no network.  Phases, one line each (or more):
                    solve_relaxation (flow 4);
   7. main/real     the generated LP of relp_tpu_torch.testing at m=384,
                    n=1536 through solve_general_form: certified, the pinned
-                   exact-objective digest, and HiGHS agreement to 1e-6;
+                   exact-objective digest, and HiGHS agreement to 1e-6; then
+                   the scan kernel against its plain version on the inputs
+                   of its first scan, timed (main/real/kernel);
   8. chunk         marginal per-pivot time of run_chunk at the 1024 x 4096
                    bench problem, kernel path and plain path;
   9. batch/resident, batch/blocked
@@ -68,6 +74,14 @@ Takes no arguments and needs no network.  Phases, one line each (or more):
 The other solve modes follow, each with every kernel's launch count from 0
 just before it (a `launches` line after each):
 
+ 12b. main/bf16    main/real's LP with SolverConfig(scan_dtype="bfloat16"),
+                   at full width, 12,000 pivots a rung at most: certified
+                   with main/real's digest, HiGHS within 1e-6; pivots,
+                   escalations and each rung, chunk exits, scan launches by
+                   dtype (bf16 launches required), the wall split; its scan
+                   replayed on its first bf16 inputs after the path's
+                   launches are read (main/bf16/kernel);
+
  13. mip/small     knap6 through the CLI with --mip, --first-order and
                    --basis-inverse lu: exact -30, certified; the MIP's best
                    bound -30 and its incumbent exactly feasible; the
@@ -87,7 +101,8 @@ just before it (a `launches` line after each):
                    version on the inputs this path gave it (mip/kernel);
  15. mip/real64    the same knapsack with --dtype float64 and 16 nodes a
                    wave to a certified optimum: HiGHS's, an exactly
-                   feasible incumbent, the waves in the batch;
+                   feasible incumbent, the waves in the batch; its first
+                   scan of each dtype replayed and timed (mip64/kernel);
  16. first_order/real
                    solve_first_order (PDHG cut at 20,000 iterations) on
                    main/real's LP: certified, the pinned digest; PDHG
@@ -129,11 +144,12 @@ just before it (a `launches` line after each):
                    scale-out.
  21. mesh/lu       in the same NCCL world of one, before it is destroyed:
                    main/real's LP on the LU engine through
-                   solve_relaxation(mesh=..., basis_inverse="lu"):
-                   certified, main/real's digest, lu/real's pivots and basis
-                   exactly; collectives and solve ms per pivot beside
-                   lu/real's; its 20th chunk replayed under the profiler
-                   for launches and device-busy time per pivot.
+                   solve_relaxation(mesh=..., basis_inverse="lu"), cut to
+                   the prefix before its 20th chunk: lu/real's pivots,
+                   basis and status there exactly; collectives and ms per
+                   pivot of the prefix beside lu/real's; the 20th chunk
+                   replayed under the profiler for launches and device-busy
+                   time per pivot.
 
 A `[time] phase=<name> s=<seconds>` line follows every phase (a phase run
 inside another, mesh/lu, is not counted twice), and `[time] total_s=...`
@@ -141,9 +157,11 @@ the last of them.  Then a JSON line describing each kernel (six: the scan, the t
 batched-pivot kernels and the probe's three) with its time, its plain
 version's, its bound (the larger of its bytes at 3.35 TB/s and its
 operations at the H100's peak for their type), the library yardstick,
-its error on mip/real's inputs (the scan's also on df32/real's and
-mesh/world1's) and its launches on each of the paths 13-21 (the probe's
-three also floor_ms and repeat_bitwise), and as the
+its error on mip/real's inputs (the scan's also on main/real's,
+main/bf16's, mip/real64's, df32/real's and mesh/world1's, with its times
+there and at every shape of phase 3) and its launches on each of the paths
+12b-21 (the scan's also by dtype; the probe's three also floor_ms and
+repeat_bitwise), and as the
 last line {"ok":
 true, "device": {...}}.  Any failure raises: the exit code is then
 non-zero and no result line is printed.
@@ -205,6 +223,11 @@ def _timed(name: str, fn, *args, **kwargs):
     return out
 
 
+# The card's name and power limit as nvidia-smi gives them, for the lines
+# that carry a time.
+_CARD = {}
+
+
 def phase_device(torch):
     from relp_tpu_torch.config import SolverConfig, torch_device
 
@@ -216,6 +239,8 @@ def phase_device(torch):
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    name, limit = (part.strip() for part in smi.split(",", 1))
+    _CARD.update(card=repr(name), power_limit=repr(limit))
     _line(
         "device", name=repr(torch.cuda.get_device_name(0)),
         count=torch.cuda.device_count(), torch=torch.__version__,
@@ -257,6 +282,12 @@ def phase_build():
     for kind, split in (("tf32", "false"), ("tf32x3", "true")):
         _line("build", kernel=f"probe_mma_kernel<{split}>",
               dynamic_smem_bytes=probe_dot_precision.smem_bytes(kind))
+    M, N = main_path_shape()
+    for name, itemsize in (("float32", 4), ("float64", 8), ("bfloat16", 2)):
+        t = price_scan.tiling(M, N, itemsize)
+        _line("build", kernel=f"price_scan_kernel<{name}>", shape=f"{M}x{N}",
+              tiling=",".join(map(str, t)), ctas=-(-N // t.tile_cols) * t.cluster,
+              dynamic_smem_bytes=price_scan.smem_bytes(itemsize, t))
 
 
 def _replay_ms(torch, body, replays: int = 10) -> float:
@@ -284,17 +315,20 @@ def _replay_ms(torch, body, replays: int = 10) -> float:
 
 def _graph_ms(torch, fn, calls: int = 20, flush=None) -> float:
     """Device milliseconds per call of ``fn``.  With ``flush`` (a buffer
-    larger than L2), each call follows a write of it, so the call finds its
-    inputs in device memory, and the time of the writes alone is taken off."""
+    larger than L2), each call follows a read of all of it (a sum), so the
+    call finds its inputs in device memory and L2 holds only clean lines (a
+    write would leave dirty ones, whose write-back the call would pay for),
+    and the time of the reads alone is taken off."""
+    total = torch.empty((), dtype=flush.dtype, device=flush.device) if flush is not None else None
 
     def flushes():
         for _ in range(calls):
-            flush.zero_()
+            torch.sum(flush, dim=0, out=total)
 
     def body():
         for _ in range(calls):
             if flush is not None:
-                flush.zero_()
+                torch.sum(flush, dim=0, out=total)
             fn()
 
     ms = _replay_ms(torch, body) / calls
@@ -318,15 +352,19 @@ def main_path_shape():
 
 def _hold_scan(torch, label, tol, P, A, c, gamma, gamma_q):
     """fused_price_scan against its plain version on the same inputs: d and
-    gamma finite and within tol * (1 + max|plain|).  Returns (the largest
-    absolute error, "d:rel,gamma:rel")."""
+    gamma finite and within tol * (1 + max|plain|), and a second launch
+    bitwise equal to the first.  Returns (the largest absolute error,
+    "d:rel,gamma:rel")."""
     from relp_tpu_torch.ops import price_scan
 
     outs_k = price_scan.fused_price_scan(P, A, c, gamma, gamma_q)
+    again = price_scan.fused_price_scan(P, A, c, gamma, gamma_q)
     outs_p = price_scan.fused_price_scan_reference(P, A, c, gamma, gamma_q)
     torch.cuda.synchronize()
     worst, errs = 0.0, []
-    for name, kern, plain in zip(("d", "gamma"), outs_k, outs_p):
+    for name, kern, second, plain in zip(("d", "gamma"), outs_k, again, outs_p):
+        _check(torch.equal(kern.view(torch.uint8), second.view(torch.uint8)),
+               f"{label}: two launches give other bits of {name}")
         kern64, plain64 = kern.double(), plain.double()
         _check(bool(torch.isfinite(kern64).all()), f"{label}: non-finite {name}")
         err = float((kern64 - plain64).abs().max())
@@ -338,59 +376,117 @@ def _hold_scan(torch, label, tol, P, A, c, gamma, gamma_q):
     return worst, ",".join(errs)
 
 
+# |err| <= tol * (1 + max|plain|) by the tableau's dtype: f32 and f64 differ
+# from the plain version only by summation order; bf16 rounds S and every
+# output to 8 bits in both, at other places.
+SCAN_TOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 5e-2}
+
+
+def scan_cases(main_shape):
+    """(M, N, dtype name) of the kernel phase: small shapes of the node-LP
+    class, the chunk loop's 1024 x 5120 and the main path's shape, in f32,
+    f64 and bf16."""
+    return [
+        (8, 128, "float32"), (96, 1280, "float32"), (100, 1000, "float32"),
+        (128, 384, "float32"), (1024, 5120, "float32"), (*main_shape, "float32"),
+        (384, 1920, "float64"), (1024, 5120, "float64"), (*main_shape, "float64"),
+        (96, 1280, "bfloat16"), (1024, 5120, "bfloat16"), (*main_shape, "bfloat16"),
+    ]
+
+
+def _scan_inputs(torch, np, device, M, N, dtype):
+    """(P, A, c, gamma, gamma_q) of an (M, N) scan, from a seed of the shape."""
+    rng = np.random.default_rng(M * 7919 + N)
+    as_t = lambda x: torch.as_tensor(x, device=device).to(dtype)  # noqa: E731
+    return (as_t(rng.standard_normal((3, M))), as_t(rng.standard_normal((M, N))),
+            as_t(rng.standard_normal(N)), as_t(1.0 + np.abs(rng.standard_normal(N))),
+            as_t(1.0 + abs(float(rng.standard_normal())) * 5))
+
+
+_FLUSH = []
+
+
+def _flush(torch):
+    """128 MB to read between calls: it evicts any tableau from the 50 MB L2."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(32 * 2**20, dtype=torch.float32, device="cuda"))
+    return _FLUSH[0]
+
+
+def _time_scan(torch, args):
+    """Device ms of the scan kernel, its plain version and torch.matmul(P, A)
+    (TF32 off, the product without the d/gamma epilogue) on ``args``, warm
+    and L2-cold (each call after a flush of L2), and the bound: A, P, c and
+    gamma read once, d and gamma written, 6 M N operations."""
+    from relp_tpu_torch.ops import price_scan
+
+    P, A = args[0], args[1]
+    M, N = A.shape
+    calls = {
+        "kernel": lambda: price_scan.fused_price_scan(*args),
+        "plain": lambda: price_scan.fused_price_scan_reference(*args),
+        "matmul": lambda: torch.matmul(P, A),
+    }
+    out = {"shape": f"{M}x{N}", "dtype": str(A.dtype).replace("torch.", "")}
+    for name, fn in calls.items():
+        out[f"{name}_ms"] = _graph_ms(torch, fn)
+        out[f"{name}_cold_ms"] = _graph_ms(torch, fn, flush=_flush(torch))
+    out["bound_ms"], out["bound_by"] = _bound(
+        (M * N + 3 * M + 4 * N) * A.element_size(), 6.0 * M * N,
+        F64_FLOPS if A.dtype == torch.float64 else F32_FLOPS)
+    return out
+
+
+def _scan_fields(t):
+    """A scan line's times: the kernel's, the plain version's and the
+    library call's, warm and L2-cold; the bound and its shares (the warm one
+    of a tableau that L2 holds); the kernel against the library call; the
+    card."""
+    return dict(
+        kernel_ms=f"{t['kernel_ms']:.5f}", kernel_cold_ms=f"{t['kernel_cold_ms']:.5f}",
+        plain_ms=f"{t['plain_ms']:.5f}", plain_cold_ms=f"{t['plain_cold_ms']:.5f}",
+        matmul_ms=f"{t['matmul_ms']:.5f}", matmul_cold_ms=f"{t['matmul_cold_ms']:.5f}",
+        bound_ms=f"{t['bound_ms']:.5f}", bound_by=t["bound_by"],
+        bound_share_cold=f"{t['bound_ms'] / t['kernel_cold_ms']:.3f}",
+        bound_share_warm_l2_resident=f"{t['bound_ms'] / t['kernel_ms']:.3f}",
+        kernel_over_matmul=f"{t['kernel_ms'] / t['matmul_ms']:.3f}",
+        kernel_over_matmul_cold=f"{t['kernel_cold_ms'] / t['matmul_cold_ms']:.3f}",
+        **_CARD,
+    )
+
+
+def _replay_scan(torch, label, args):
+    """The scan kernel against its plain version on the inputs a path gave
+    it (``_hold_scan``, the tolerance of its dtype), timed as the kernel
+    phase times it; one line.  Returns (the largest absolute error, the
+    times)."""
+    dtype = str(args[1].dtype).replace("torch.", "")
+    err, errs = _hold_scan(torch, label, SCAN_TOL[dtype], *args)
+    t = _time_scan(torch, args)
+    _line(label, kernel="fused_price_scan", shape="x".join(map(str, args[1].shape)),
+          dtype=dtype, rel_err=errs, tol=f"{SCAN_TOL[dtype]:g}*(1+scale)",
+          repeat_bitwise=True, **_scan_fields(t))
+    return err, t
+
+
 def phase_kernel(torch, np, device):
     from relp_tpu_torch.ops import price_scan
 
     main_shape = main_path_shape()
-    # (M, N, dtype, tolerance factor): |err| <= tol * (1 + max|plain|).
-    # f32 and f64 differ from the plain version only by summation order;
-    # bf16 rounds S and every output to 8 bits in both, at other places.
-    cases = [
-        (8, 128, torch.float32, 1e-5),
-        (96, 1280, torch.float32, 1e-5),
-        (100, 1000, torch.float32, 1e-5),
-        (1024, 5120, torch.float32, 1e-5),
-        (*main_shape, torch.float32, 1e-5),
-        (384, 1920, torch.float64, 1e-12),
-        (*main_shape, torch.float64, 1e-12),
-        (96, 1280, torch.bfloat16, 5e-2),
-        (1024, 5120, torch.bfloat16, 5e-2),
-    ]
-    errors = {}
-    times = {}
-    # Writing 128 MB evicts any tableau from the 50 MB L2 between calls.
-    flush = torch.empty(32 * 2**20, dtype=torch.float32, device=device)
-    for M, N, dtype, tol in cases:
-        rng = np.random.default_rng(M * 7919 + N)
-        as_t = lambda x: torch.as_tensor(x, device=device).to(dtype)  # noqa: E731
-        P = as_t(rng.standard_normal((3, M)))
-        A = as_t(rng.standard_normal((M, N)))
-        c = as_t(rng.standard_normal(N))
-        g = as_t(1.0 + np.abs(rng.standard_normal(N)))
-        gq = as_t(1.0 + abs(float(rng.standard_normal())) * 5)
-        errors[(M, N, dtype)], errs = _hold_scan(torch, f"{M}x{N} {dtype}", tol,
-                                                 P, A, c, g, gq)
-        kern = lambda: price_scan.fused_price_scan(P, A, c, g, gq)  # noqa: E731
-        plain = lambda: price_scan.fused_price_scan_reference(P, A, c, g, gq)  # noqa: E731
-        library = lambda: torch.matmul(P, A)  # noqa: E731  (no epilogue)
-        kern_ms, plain_ms = _graph_ms(torch, kern), _graph_ms(torch, plain)
-        library_ms = _graph_ms(torch, library)
-        cold = (_graph_ms(torch, kern, flush=flush), _graph_ms(torch, plain, flush=flush))
-        size = A.element_size()
-        # Reads A, P, c and gamma once, writes d and gamma: 6 M N operations.
-        bound_ms, bound_by = _bound((M * N + 3 * M + 4 * N) * size, 6.0 * M * N,
-                                    F64_FLOPS if dtype == torch.float64 else F32_FLOPS)
-        times[(M, N, dtype)] = (kern_ms, plain_ms, library_ms, bound_ms, bound_by)
-        tableau_gb = M * N * A.element_size() / 1e9
+    errors, times = {}, {}
+    for M, N, name in scan_cases(main_shape):
+        dtype, tol = getattr(torch, name), SCAN_TOL[name]
+        args = _scan_inputs(torch, np, device, M, N, dtype)
+        errors[(M, N, dtype)], errs = _hold_scan(torch, f"{M}x{N} {name}", tol, *args)
+        t = times[(M, N, dtype)] = _time_scan(torch, args)
+        tableau_gb = M * N * args[1].element_size() / 1e9
         _line(
-            "kernel", shape=f"{M}x{N}", dtype=str(dtype).replace("torch.", ""),
-            rel_err=errs, tol=f"{tol:g}*(1+scale)",
-            kernel_ms=f"{kern_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
-            matmul_ms=f"{library_ms:.5f}", bound_ms=f"{bound_ms:.5f}",
-            bound_by=bound_by, bound_share=f"{bound_ms / kern_ms:.3f}",
-            kernel_cold_ms=f"{cold[0]:.5f}", plain_cold_ms=f"{cold[1]:.5f}",
-            kernel_GBps=f"{tableau_gb / (kern_ms * 1e-3):.1f}",
-            kernel_cold_GBps=f"{tableau_gb / (cold[0] * 1e-3):.1f}",
+            "kernel", shape=f"{M}x{N}", dtype=name, rel_err=errs,
+            tol=f"{tol:g}*(1+scale)", repeat_bitwise=True,
+            tiling=",".join(map(str, price_scan.tiling(M, N, args[1].element_size()))),
+            **_scan_fields(t),
+            kernel_GBps=f"{tableau_gb / (t['kernel_ms'] * 1e-3):.1f}",
+            kernel_cold_GBps=f"{tableau_gb / (t['kernel_cold_ms'] * 1e-3):.1f}",
         )
     return main_shape, errors, times
 
@@ -530,10 +626,45 @@ def _highs_objective(np):
     return float(res.fun)
 
 
-def phase_main_real(torch, np):
+# main/bf16's iteration limit (a rung's pivots).  Its f32 rung stalls on
+# the card (PERF.md): uncapped it ran about 62,000 pivots (890 s) before
+# the f64 rung certified in 8,017; capped, the f64 rung certified in 8,986.
+# main/real takes 4,260.  The cap ends the stalled rung within the script's
+# 1,200 s and leaves the f64 rung a third more pivots than it took.
+_MAIN_BF16_MAX_ITERATIONS = 12_000
+
+
+@contextlib.contextmanager
+def _recording_rungs(rungs):
+    """Each rung of the escalation ladder that solve_relaxation runs, as
+    "dtype:status:certified:pivots:seconds" in ``rungs``."""
+    from relp_tpu_torch.simplex import driver
+
+    def wrapper(once):
+        def run(provider, cfg, *args, **kwargs):
+            t0 = time.perf_counter()
+            result = once(provider, cfg, *args, **kwargs)
+            rungs.append(f"{cfg.dtype}:{result.status.value}:{result.stats.certified}:"
+                         f"{result.stats.iterations}:{time.perf_counter() - t0:.1f}")
+            return result
+        return run
+
+    with _wrapped(driver, "_solve_relaxation_once", wrapper):
+        yield
+
+
+def phase_main_real(torch, np, label="main/real", scan_dtype="float32", main_result=None,
+                    **limits):
+    """main/real's LP through solve_general_form with SolverConfig(scan_dtype=
+    ``scan_dtype``, **limits), everything else the defaults: certified, the
+    pinned exact-objective digest, HiGHS agreement to 1e-6; pivots, chunk
+    exits, escalations and each rung, scan launches by dtype, the wall
+    split.  The inputs of the first scan of the tableau in ``scan_dtype``
+    are kept.  Returns the result and the replay of the kernel against its
+    plain version on them (run once the path's launches are read)."""
     from relp_tpu_torch.config import SolverConfig
     from relp_tpu_torch.ops import price_scan
-    from relp_tpu_torch.simplex import SolveStatus, solve_general_form
+    from relp_tpu_torch.simplex import SolveStatus, kernels, solve_general_form
     from relp_tpu_torch.testing import (
         REAL_SIZE,
         REAL_SIZE_OBJECTIVE_SHA256,
@@ -541,31 +672,46 @@ def phase_main_real(torch, np):
     )
 
     gf = generated_lp(**REAL_SIZE)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    result, solution = solve_general_form(gf, SolverConfig())
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    _check(result.status is SolveStatus.FINITE_OPTIMUM, f"status {result.status}")
-    _check(result.stats.certified, "not certified")
+    kept, rungs = {}, []
+    scans = getattr(torch, scan_dtype)
+    with _keeping_inputs(kernels, "fused_price_scan", kept,
+                         when=lambda _P, A, *_rest: A.dtype == scans), \
+            _recording_rungs(rungs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result, solution = solve_general_form(
+            gf, SolverConfig(scan_dtype=scan_dtype, **limits))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_dtype = dict(price_scan.LAUNCHES_BY_DTYPE)
+    _check(result.status is SolveStatus.FINITE_OPTIMUM, f"{label}: status {result.status}")
+    _check(result.stats.certified, f"{label}: not certified")
     digest = hashlib.sha256(str(solution.objective_value).encode()).hexdigest()
-    _check(digest == REAL_SIZE_OBJECTIVE_SHA256, f"objective digest {digest}")
+    _check(digest == REAL_SIZE_OBJECTIVE_SHA256, f"{label}: objective digest {digest}")
     objective = float(solution.objective_value)
-    highs = _highs_objective(np)
+    if "real" not in _HIGHS:
+        _HIGHS["real"] = _highs_objective(np)
+    highs = _HIGHS["real"]
     rel = abs(objective - highs) / max(1.0, abs(highs))
-    _check(rel <= 1e-6, f"HiGHS {highs} vs {objective}")
+    _check(rel <= 1e-6, f"{label}: HiGHS {highs} vs {objective}")
+    _check("fused_price_scan" in kept, f"{label}: no scan of the {scan_dtype} tableau")
     _line(
-        "main/real", m=REAL_SIZE["m"], n=REAL_SIZE["n"], seed=REAL_SIZE["seed"],
-        status=result.status.value, certified=result.stats.certified,
+        label, m=REAL_SIZE["m"], n=REAL_SIZE["n"], seed=REAL_SIZE["seed"],
+        scan_dtype=scan_dtype, status=result.status.value, certified=result.stats.certified,
         pivots=result.stats.iterations, phase1_pivots=result.stats.phase1_iterations,
+        **({} if main_result is None else
+           {"main_real_pivots": main_result.stats.iterations}),
         escalations=",".join(result.stats.escalations) or "none",
+        rungs=",".join(rungs), **limits,
         refactorizations=result.stats.refactorizations, chunks=result.stats.chunks,
         wall_s=f"{wall:.3f}", solve_wall_s=f"{result.stats.wall_time_s:.3f}",
+        solve_s=f"{result.stats.wall_time_s - result.stats.certify_time_s:.3f}",
         certify_s=f"{result.stats.certify_time_s:.3f}",
         objective=f"{objective:.12f}", digest_ok=True, highs_rel_diff=f"{rel:.2e}",
         price_scan_launches=price_scan.LAUNCHES,
+        **{f"scan_launches_{name}": n for name, n in by_dtype.items()},
     )
-    return result
+    return result, lambda: _replay_scan(torch, f"{label}/kernel", kept["fused_price_scan"][0])
 
 
 def _bench_chunk_inputs(torch, np, device):
@@ -658,7 +804,8 @@ def phase_chunk_loop(torch, np, device, times):
 
     per_pivot = _marginal_ms_per_pivot(
         torch, np, {path: with_scan(path) for path in ("kernel", "plain")})
-    kern_ms, plain_ms = times[(1024, 5120, torch.float32)][:2]
+    scan = times[(1024, 5120, torch.float32)]
+    kern_ms, plain_ms = scan["kernel_ms"], scan["plain_ms"]
     busy_ms, launches, top = _device_busy(torch, lambda: run(60), 60)
     idle = 1.0 - busy_ms / per_pivot["kernel"][0] if busy_ms else None
     _line(
@@ -1205,6 +1352,7 @@ def _launch_counts():
 
     return {
         "fused_price_scan": price_scan.LAUNCHES,
+        **{f"fused_price_scan_{name}": n for name, n in price_scan.LAUNCHES_BY_DTYPE.items()},
         "batched_pivot_chunk": batch_pivot.LAUNCHES_RESIDENT,
         "batched_pivot_chunk_blocked": batch_pivot.LAUNCHES_BLOCKED,
         **{f"probe_dot_{kind}": probe.LAUNCHES[kind] for kind in probe.KINDS},
@@ -1216,6 +1364,8 @@ def _zero_launch_counts():
     from relp_tpu_torch.tools import probe_dot_precision as probe
 
     price_scan.LAUNCHES = 0
+    for name in price_scan.LAUNCHES_BY_DTYPE:
+        price_scan.LAUNCHES_BY_DTYPE[name] = 0
     batch_pivot.LAUNCHES_RESIDENT = batch_pivot.LAUNCHES_BLOCKED = 0
     for kind in probe.KINDS:
         probe.LAUNCHES[kind] = 0
@@ -1388,7 +1538,7 @@ def _mknap_highs(np):
     """HiGHS on the Chu-Beasley knapsack, once: (status, objective, bound)."""
     from relp_tpu_torch.testing import MKNAP, mknap_data
 
-    if not _HIGHS:
+    if "result" not in _HIGHS:
         _HIGHS["result"] = _highs_mip(np, *mknap_data(**MKNAP))
     return _HIGHS["result"]
 
@@ -1491,8 +1641,8 @@ def phase_mip_real(torch, np):
     node wave (its cold batch) and of the first scan launch inside a batch
     (a node LP that
     fell back to the single-LP driver) are kept: returns the replay that
-    holds each kernel against its plain version on them, to run once the
-    path's launches are read."""
+    holds each kernel against its plain version on them (the scan's also
+    timed), to run once the path's launches are read."""
     from relp_tpu_torch.config import SolverConfig
     from relp_tpu_torch.ops import batch_pivot
     from relp_tpu_torch.simplex import kernels
@@ -1554,13 +1704,10 @@ def _replay_mip_kernels(torch, kept):
               rel_err=",".join(f"{f}:{v:.2e}" for f, v in rel.items()))
     args, _kw = kept["fused_price_scan"]
     before = _launch_counts()["fused_price_scan"]
-    errors["fused_price_scan"], errs = _hold_scan(torch, "mip/real node LP", 1e-5,
-                                                  *args)
-    _check(_launch_counts()["fused_price_scan"] == before + 1,
+    errors["fused_price_scan"], errors["fused_price_scan_times"] = _replay_scan(
+        torch, "mip/kernel", args)
+    _check(_launch_counts()["fused_price_scan"] > before,
            "mip/real replay: the scan kernel did not launch")
-    _line("mip/kernel", kernel="fused_price_scan", launched=1,
-          shape="x".join(map(str, args[1].shape)), dtype=str(args[1].dtype),
-          rel_err=errs, tol="1e-05*(1+scale)")
     return errors
 
 
@@ -1574,9 +1721,21 @@ def phase_mip_real64(torch, np):
     from relp_tpu_torch.config import SolverConfig
     from relp_tpu_torch.simplex import SolveStatus
 
-    tally = {}
-    mip = _solve_mknap(torch, np, "mip/real64", SolverConfig(dtype="float64"), 1,
-                       tally, batch_width=16, node_limit=4096, time_limit_s=300)
+    from relp_tpu_torch.simplex import kernels
+
+    tally, kept = {}, {}
+
+    def first_of_each_dtype(scan):
+        def run(*args):
+            if str(args[1].dtype) not in kept:
+                kept[str(args[1].dtype)] = tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args)
+            return scan(*args)
+        return run
+
+    with _wrapped(kernels, "fused_price_scan", first_of_each_dtype):
+        mip = _solve_mknap(torch, np, "mip/real64", SolverConfig(dtype="float64"), 1,
+                           tally, batch_width=16, node_limit=4096, time_limit_s=300)
     status, z_highs, _bound = _mknap_highs(np)
     _check(mip.status is SolveStatus.FINITE_OPTIMUM and mip.certified,
            f"mip/real64: {mip.status} certified={mip.certified}")
@@ -1588,6 +1747,13 @@ def phase_mip_real64(torch, np):
     _check(10 * tally["fallbacks"] <= tally["batched_lps"],
            f"mip/real64: {tally['fallbacks']} of {tally['batched_lps']} node LPs "
            "left the batch")
+    _check(kept, "mip/real64 never called the scan")
+
+    def replays():  # the first scan of each dtype (f32 node LPs, f64 polish)
+        out = [_replay_scan(torch, "mip64/kernel", args) for args in kept.values()]
+        return max(err for err, _t in out), out[-1][1]
+
+    return replays
 
 
 def _reconstructed_objective(gf, md, result):
@@ -1775,7 +1941,9 @@ def phase_lu_real(torch, found):
         certify_s=f"{result.stats.certify_time_s:.3f}",
         solve_ms_per_pivot=f"{solve_s / pivots * 1e3:.4f}",
     )
-    found.update(result=result, solve_ms_per_pivot=solve_s / pivots * 1e3, replay=replay)
+    state = kept["run_chunk"][0][1]
+    found.update(result=result, solve_ms_per_pivot=solve_s / pivots * 1e3, replay=replay,
+                 state=state, prefix_s=calls[_PROFILED_CHUNK - 1] - t0)
     _line("lu/profile", chunk=_PROFILED_CHUNK, **replay.fields())
 
 # The chunk of lu/real, df32/real and mesh/lu replayed under the profiler.
@@ -1784,13 +1952,38 @@ _PROFILED_CHUNK = 20
 
 def _keeping_profiled_chunk(engine_cls, kept, calls):
     """``_keeping_inputs`` of ``engine_cls.run_chunk``'s _PROFILED_CHUNK-th
-    call, each call appended to ``calls``."""
+    call, the time of each call appended to ``calls``."""
 
     def profiled(*_args):
-        calls.append(1)
+        calls.append(time.perf_counter())
         return len(calls) == _PROFILED_CHUNK
 
     return _keeping_inputs(engine_cls, "run_chunk", kept, when=profiled)
+
+
+class _PrefixDone(BaseException):
+    """Ends a solve at its profiled chunk (not an Exception: nothing on the
+    way catches it)."""
+
+
+@contextlib.contextmanager
+def _stopping_at_profiled_chunk(engine_cls, kept, calls):
+    """``_keeping_profiled_chunk``, the solve then ended by _PrefixDone
+    before that chunk runs."""
+
+    def stop(fn):
+        def run(*args, **kwargs):
+            if "run_chunk" in kept:
+                raise _PrefixDone
+            return fn(*args, **kwargs)
+        return run
+
+    with _wrapped(engine_cls, "run_chunk", stop), \
+            _keeping_profiled_chunk(engine_cls, kept, calls):
+        try:
+            yield
+        except _PrefixDone:
+            pass
 
 
 class _Replay:
@@ -1915,13 +2108,9 @@ def phase_df32_real(torch, np):
     (_engine, state, _A_scan, A_full, *_rest), _kw = kept["run_chunk"]
 
     def holds():
-        scan_args, _kw = kept["fused_price_scan"]
-        err, errs = _hold_scan(torch, "df32/real", 1e-5, *scan_args)
-        _line("df32/kernel", kernel="fused_price_scan",
-              shape="x".join(map(str, scan_args[1].shape)), rel_err=errs,
-              tol="1e-05*(1+scale)")
+        out = _replay_scan(torch, "df32/kernel", kept["fused_price_scan"][0])
         _hold_df_bitwise(torch, np, "df32/kernel", state, A_full)
-        return err
+        return out
 
     return holds
 
@@ -1944,61 +2133,50 @@ _MESH_PDHG_Y_REL = 1e-6
 def phase_mesh_lu(torch, mesh, lu, window):
     """main/real's LP on the LU engine column-sharded over mesh/world1's
     (1, 1) mesh (solve_relaxation(mesh=..., basis_inverse="lu")), while its
-    NCCL world of one is up: certified, main/real's digest, lu/real's pivots
-    and basis exactly (``lu``: what lu/real found); collectives and solve
-    ms per pivot beside lu/real's; then the solve's 20th chunk replayed
-    under the profiler for launches and device-busy time per pivot, as
-    lu/profile does.  The path's launch counts (``window["mesh/lu"]``)
-    cover the solve only."""
+    NCCL world of one is up, cut to a prefix: the solve runs until its
+    _PROFILED_CHUNK-th chunk is called and stops there.  It must enter that
+    chunk with lu/real's pivots, basis and status exactly (``lu``: what
+    lu/real found at its own); collectives and ms per pivot of the prefix
+    beside lu/real's; then that chunk replayed under the profiler for
+    launches and device-busy time per pivot, as lu/profile does.  The path's
+    launch counts (``window["mesh/lu"]``) cover the prefix only."""
     from relp_tpu_torch.config import SolverConfig
     from relp_tpu_torch.parallel import sharded
-    from relp_tpu_torch.simplex import SolveStatus, engine, solve_relaxation
-    from relp_tpu_torch.testing import (
-        REAL_SIZE,
-        REAL_SIZE_OBJECTIVE_SHA256,
-        generated_lp,
-    )
+    from relp_tpu_torch.simplex import engine, solve_relaxation
+    from relp_tpu_torch.testing import REAL_SIZE, generated_lp
 
-    ref = lu["result"]
+    ref = lu["state"]
     gf = generated_lp(**REAL_SIZE)
     gf.presolve()
     md = gf.derive_matrix_data(gf.standardize())
     kept, calls = {}, []
     _zero_launch_counts()
     sharded.COLLECTIVES = 0
-    with _keeping_profiled_chunk(engine.LUEngine, kept, calls):
+    with _stopping_at_profiled_chunk(engine.LUEngine, kept, calls):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        result = solve_relaxation(md, SolverConfig(basis_inverse="lu"), mesh=mesh)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        solve_relaxation(md, SolverConfig(basis_inverse="lu"), mesh=mesh)
     collectives = sharded.COLLECTIVES
     window["mesh/lu"] = _launch_counts()
-    _check(result.status is SolveStatus.FINITE_OPTIMUM and result.stats.certified,
-           f"mesh/lu: {result.status} certified={result.stats.certified}")
-    digest = hashlib.sha256(
-        str(_reconstructed_objective(gf, md, result)).encode()).hexdigest()
-    _check(digest == REAL_SIZE_OBJECTIVE_SHA256, f"mesh/lu digest {digest}")
-    pivots = result.stats.iterations
-    _check(pivots == ref.stats.iterations,
-           f"mesh/lu: {pivots} pivots, lu/real {ref.stats.iterations}")
-    _check(result.basis == ref.basis, "mesh/lu: another basis than lu/real")
-    solve_s = result.stats.wall_time_s - result.stats.certify_time_s
+    _check("run_chunk" in kept,
+           f"mesh/lu: the solve ended after {len(calls)} chunks, before {_PROFILED_CHUNK}")
+    prefix_s = calls[_PROFILED_CHUNK - 1] - t0
+    state = kept["run_chunk"][0][1]
+    pivots = int(state.iteration)
+    _check(pivots == int(ref.iteration),
+           f"mesh/lu: {pivots} pivots before chunk {_PROFILED_CHUNK}, lu/real {int(ref.iteration)}")
+    _check(torch.equal(state.basis, ref.basis) and int(state.status) == int(ref.status),
+           f"mesh/lu: another basis or status than lu/real's before chunk {_PROFILED_CHUNK}")
     replay = _Replay(torch, "mesh/lu", kept, calls)
     _check(kept["run_chunk"][0][0].shard is not None,
            "mesh/lu: the LU engine ran without its shard")
     _line(
         "mesh/lu", problem="main/real", mesh="1x1", basis_inverse="lu",
-        status=result.status.value, certified=True, digest_ok=True,
-        same_basis=True, pivots=pivots, lu_real_pivots=ref.stats.iterations,
-        phase1_pivots=result.stats.phase1_iterations,
-        refactorizations=result.stats.refactorizations, chunks=result.stats.chunks,
-        escalations=",".join(result.stats.escalations) or "none",
+        prefix_chunks=_PROFILED_CHUNK - 1, same_basis=True, same_status=True,
+        pivots=pivots, lu_real_pivots=int(ref.iteration),
         collectives=collectives, collectives_per_pivot=f"{collectives / pivots:.3f}",
-        wall_s=f"{wall:.3f}", solve_s=f"{solve_s:.3f}",
-        certify_s=f"{result.stats.certify_time_s:.3f}",
-        solve_ms_per_pivot=f"{solve_s / pivots * 1e3:.4f}",
-        lu_real_solve_ms_per_pivot=f"{lu['solve_ms_per_pivot']:.4f}",
+        prefix_s=f"{prefix_s:.3f}", prefix_ms_per_pivot=f"{prefix_s / pivots * 1e3:.4f}",
+        lu_real_prefix_ms_per_pivot=f"{lu['prefix_s'] / pivots * 1e3:.4f}",
     )
     _line(
         "mesh/lu", profiled_chunk=_PROFILED_CHUNK,
@@ -2240,15 +2418,7 @@ def phase_mesh_world1(torch, np, device, main_result, window, lu):
         dist.destroy_process_group()
     _check("fused_price_scan" in kept, "mesh/world1 never called the scan")
 
-    def holds():
-        scan_args, _kw = kept["fused_price_scan"]
-        err, errs = _hold_scan(torch, "mesh/world1", 1e-5, *scan_args)
-        _line("mesh/kernel", kernel="fused_price_scan",
-              shape="x".join(map(str, scan_args[1].shape)), rel_err=errs,
-              tol="1e-05*(1+scale)")
-        return err
-
-    return holds
+    return lambda: _replay_scan(torch, "mesh/kernel", kept["fused_price_scan"][0])
 
 
 def phase_other_modes(torch, np, device, knap6_pivots, main_result):
@@ -2256,10 +2426,14 @@ def phase_other_modes(torch, np, device, knap6_pivots, main_result):
     it and read just after it (mesh/lu, run inside mesh/world1's process
     group, counts its own); then each kernel against its plain version
     on the inputs a path gave it (launches not counted): mip/real's, and
-    the scan's on df32/real and mesh/world1.  Returns ({path: launches by
-    kernel}, {kernel: mip/real's error}, {path: the scan's error})."""
+    the scan's on main/bf16, mip/real64, df32/real and mesh/world1.
+    Returns ({path: launches by kernel}, {kernel: mip/real's error},
+    {path: (the scan's error, its times)})."""
     by_path, replays, window, lu = {}, {}, {}, {}
     for path, run in (
+        ("main/bf16", lambda: phase_main_real(
+            torch, np, "main/bf16", "bfloat16", main_result,
+            max_iterations=_MAIN_BF16_MAX_ITERATIONS)[1]),
         ("mip/small", lambda: phase_mip_small(knap6_pivots)),
         ("mip/real", lambda: phase_mip_real(torch, np)),
         ("mip/real64", lambda: phase_mip_real64(torch, np)),
@@ -2278,11 +2452,17 @@ def phase_other_modes(torch, np, device, knap6_pivots, main_result):
         for nested in list(window):  # a path run inside this phase
             by_path[nested] = window.pop(nested)
             _line("launches", path=nested, **by_path[nested])
-    for path in ("mip/small", "mip/real", "mip/real64", "df32/real", "mesh/world1"):
+    for path in ("main/bf16", "mip/small", "mip/real", "mip/real64", "df32/real",
+                 "mesh/world1"):
         _check(by_path[path]["fused_price_scan"] > 0,
                f"{path} never launched the scan kernel")
-    scan_errors = {path: replays[path]() for path in ("df32/real", "mesh/world1")}
-    return by_path, replays["mip/real"](), scan_errors
+    _check(by_path["main/bf16"]["fused_price_scan_bfloat16"] > 0,
+           "main/bf16 never launched the scan kernel on its bf16 tableau")
+    scans = {path: replays[path]() for path in ("main/bf16", "mip/real64", "df32/real",
+                                                 "mesh/world1")}
+    mip = replays["mip/real"]()
+    scans["mip/real"] = (mip["fused_price_scan"], mip.pop("fused_price_scan_times"))
+    return by_path, mip, scans
 
 
 _REFUSED = ("jax", "jaxlib", "relp_tpu")
@@ -2322,11 +2502,14 @@ def main() -> int:
     probes = _timed("probe", phase_probe, torch, device)
     batch_errors, batch_times = _timed("batch/kernel", phase_batch_kernel, torch, np)
 
-    price_scan.LAUNCHES = 0  # counts from here on are the main path's
+    # Counts from here on are the main path's.
+    price_scan.LAUNCHES = 0
+    price_scan.LAUNCHES_BY_DTYPE.update(dict.fromkeys(price_scan.LAUNCHES_BY_DTYPE, 0))
     knap6_pivots = _timed("main/small", phase_main_small, torch)
-    main_result = _timed("main/real", phase_main_real, torch, np)
+    main_result, main_replay = _timed("main/real", phase_main_real, torch, np)
     launches = price_scan.LAUNCHES
     _check(launches > 0, "the main path never launched the scan kernel")
+    main_scan = main_replay()  # the kernel on main/real's inputs, not counted
 
     _timed("chunk", phase_chunk_loop, torch, np, device, times)
 
@@ -2345,13 +2528,14 @@ def main() -> int:
     _timed("batch/warm", phase_batch_warm, torch, np)
     _timed("batch/chunk", phase_batch_chunk, torch, np)
 
-    by_path, mip_errors, scan_errors = phase_other_modes(
+    by_path, mip_errors, scans = phase_other_modes(
         torch, np, device, knap6_pivots, main_result)
+    scans = {"main/real": main_scan, **scans}
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in _REFUSED)
     _check(not loaded, f"imported: {loaded}")
 
     main_case = (*main_shape, torch.float32)
-    kern_ms, plain_ms, library_ms, bound_ms, bound_by = times[main_case]
+    scan = times[main_case]
     kernels = [{
         "name": "fused_price_scan",
         "route": "cuda",
@@ -2359,16 +2543,24 @@ def main() -> int:
         "replaces": "relp_tpu/ops/pallas_scan.py:102",
         "launches": launches,
         "max_abs_err": errors[main_case],
-        "mip_real_abs_err": mip_errors["fused_price_scan"],
-        "df32_real_abs_err": scan_errors["df32/real"],
-        "mesh_world1_abs_err": scan_errors["mesh/world1"],
-        "ms": kern_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+        **{f"{path.replace('/', '_')}_abs_err": err for path, (err, _t) in scans.items()},
+        "ms": scan["kernel_ms"],
+        "cold_ms": scan["kernel_cold_ms"],
+        "plain_ms": scan["plain_ms"],
+        "bound_ms": scan["bound_ms"],
+        "bound_by": scan["bound_by"],
+        "library_ms": scan["matmul_ms"],
+        "library_cold_ms": scan["matmul_cold_ms"],
         "library": "torch.matmul(P, A), TF32 off, without the d/gamma epilogue",
         "shape": list(main_shape),
+        # Every shape and dtype of the kernel phase, and each path's inputs.
+        "by_case": {f"{M}x{N} {str(dtype).replace('torch.', '')}": t
+                    for (M, N, dtype), t in times.items()},
+        "on_path_inputs": {path: t for path, (_err, t) in scans.items()},
+        "launches_by_path_dtype": {
+            path: {name: counts[f"fused_price_scan_{name}"]
+                   for name in price_scan.LAUNCHES_BY_DTYPE}
+            for path, counts in by_path.items()},
     }]
     for name, fn, replaces in (
         ("resident", "batched_pivot_chunk", "relp_tpu/ops/pallas_batch.py:865"),

@@ -7,7 +7,9 @@ imports none, and it runs there without the suite's conftest:
 
 The hand-written scan kernel is held against its plain PyTorch version on
 the same tensors (|err| <= tol * (1 + max|plain|): f32 1e-5, f64 1e-12,
-summation order only), and the main path on CUDA must reach the exact
+summation order only; bf16 5e-2, S and the outputs rounded to 8 bits at
+other places), one launch a call, two launches bitwise equal, under its
+own tiling and every tiling the timing tool sweeps; the main path on CUDA must reach the exact
 verdicts the port reaches on the CPU.  The batched-pivot kernels are held
 against batched_pivot_chunk_reference at the JAX megakernel tests' toy
 shapes (identical pivots; xB 1e-4, pi 1e-3, Binv 1e-3, gamma 1e-2 relative
@@ -46,26 +48,65 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize(
-    "M,N,dtype,tol",
-    [(8, 128, torch.float32, 1e-5), (100, 1000, torch.float32, 1e-5),
-     (1024, 5120, torch.float32, 1e-5), (1, 3, torch.float64, 1e-12),
-     (384, 1920, torch.float64, 1e-12)],
-)
-def test_scan_kernel_matches_plain(cuda_device, M, N, dtype, tol):
+def _scan_inputs(device, M, N, dtype):
     rng = np.random.default_rng(M * N)
-    as_t = lambda x: torch.as_tensor(x, device=cuda_device).to(dtype)  # noqa: E731
-    P, A = as_t(rng.standard_normal((3, M))), as_t(rng.standard_normal((M, N)))
-    c, g = as_t(rng.standard_normal(N)), as_t(1.0 + np.abs(rng.standard_normal(N)))
-    gq = as_t(1.0 + abs(float(rng.standard_normal())) * 5)
-    launches = price_scan.LAUNCHES
-    d_k, g_k = price_scan.fused_price_scan(P, A, c, g, gq)
+    as_t = lambda x: torch.as_tensor(x, device=device).to(dtype)  # noqa: E731
+    return (as_t(rng.standard_normal((3, M))), as_t(rng.standard_normal((M, N))),
+            as_t(rng.standard_normal(N)), as_t(1.0 + np.abs(rng.standard_normal(N))),
+            as_t(1.0 + abs(float(rng.standard_normal())) * 5))
+
+
+def _assert_scan_close(outs, plain, tol):
+    for kern, want in zip(outs, plain):
+        scale = 1.0 + float(want.double().abs().max())
+        assert float((kern.double() - want.double()).abs().max()) <= tol * scale
+
+
+SCAN_TOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 5e-2}
+
+
+# Rows 16-byte aligned and not (N sizeof(T) % 16: the masked tail path), a
+# ragged last column tile, ragged cluster ranks, ranks whose P rows do not
+# fit in shared memory (read through L1), and the main path's shape.
+@pytest.mark.parametrize(
+    "M,N,dtype",
+    [(8, 128, torch.float32), (100, 1000, torch.float32), (7, 130, torch.float32),
+     (1, 3, torch.float32), (1000, 780, torch.float32), (1000, 777, torch.float32),
+     (5000, 256, torch.float32), (40000, 256, torch.float32), (100000, 7, torch.float32),
+     (1024, 5120, torch.float32), (1920, 5248, torch.float32),
+     (1, 3, torch.float64), (65, 1001, torch.float64), (384, 1920, torch.float64),
+     (1920, 5248, torch.float64),
+     (96, 1280, torch.bfloat16), (33, 1001, torch.bfloat16), (1000, 776, torch.bfloat16),
+     (1024, 5120, torch.bfloat16), (1920, 5248, torch.bfloat16)],
+)
+def test_scan_kernel_matches_plain(cuda_device, M, N, dtype):
+    """One launch a call, within the dtype's tolerance of the plain version,
+    and a second launch bitwise equal to the first."""
+    args = _scan_inputs(cuda_device, M, N, dtype)
+    launches, by_dtype = price_scan.LAUNCHES, dict(price_scan.LAUNCHES_BY_DTYPE)
+    d_k, g_k = price_scan.fused_price_scan(*args)
     torch.cuda.synchronize()
     assert price_scan.LAUNCHES == launches + 1
-    d_p, g_p = price_scan.fused_price_scan_reference(P, A, c, g, gq)
-    for kern, plain in ((d_k, d_p), (g_k, g_p)):
-        scale = 1.0 + float(plain.abs().max())
-        assert float((kern - plain).abs().max()) <= tol * scale
+    name = str(dtype).replace("torch.", "")
+    assert price_scan.LAUNCHES_BY_DTYPE[name] == by_dtype[name] + 1
+    _assert_scan_close((d_k, g_k), price_scan.fused_price_scan_reference(*args),
+                       SCAN_TOL[dtype])
+    d_2, g_2 = price_scan.fused_price_scan(*args)
+    for first, second in ((d_k, d_2), (g_k, g_2)):
+        assert torch.equal(first.view(torch.uint8), second.view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+def test_scan_kernel_every_tiling_matches_plain(cuda_device, dtype):
+    """Every tiling the timing tool sweeps (tiles of 128 B, 256 B and 512 B,
+    clusters of 1-8 ranks) gives the plain version's result."""
+    from relp_tpu_torch.tools.scan_timing import candidates
+
+    M, N = 700, 1000
+    args = _scan_inputs(cuda_device, M, N, dtype)
+    plain = price_scan.fused_price_scan_reference(*args)
+    for t in candidates(M, N, args[1].element_size()):
+        _assert_scan_close(price_scan._launch(*args, t), plain, SCAN_TOL[dtype])
 
 
 def test_scan_kernel_rejects_bad_arguments(cuda_device):

@@ -7,7 +7,9 @@ relp_tpu_torch.testing at m=64, n=256 go through both packages, at f32 and
 f64, each package building the input with its own classes from the same
 source (``twin``).  The exact verdict must agree: the same SolveStatus
 value, the same ``certified`` and the same Fraction objective (exact, no
-tolerance).
+tolerance).  The LP cases and the fuzz seeds also run with the scans in
+bf16 (``scan_dtype="bfloat16"`` on the f32 carry, the configuration of
+relp_tpu/config.py:38-43), in both packages.
 """
 
 import importlib
@@ -54,6 +56,8 @@ def _package(port: bool) -> SimpleNamespace:
 JAX, PORT = _package(False), _package(True)
 
 DTYPES = ("float32", "float64")
+# The scans of a bf16 tableau copy on the f32 carry.
+SCAN_BF16 = "float32-scan_bfloat16"
 SMALL = dict(pad_to=8, chunk_size=50, refactor_period=50)  # conftest cpu_config
 TIGHT = dict(pad_to=8, presolve=False)
 
@@ -108,6 +112,9 @@ def _verdict(result, solution):
 
 
 def _both(build, overrides, dtype):
+    if dtype == SCAN_BF16:
+        overrides = dict(overrides, scan_dtype="bfloat16")
+        dtype = "float32"
     jax_out = jax_solve_general_form(build(JAX), JaxConfig(dtype=dtype, **overrides))
     port_out = solve_general_form(
         build(PORT), SolverConfig(dtype=dtype, platform="cpu", **overrides)
@@ -115,7 +122,7 @@ def _both(build, overrides, dtype):
     return _verdict(*jax_out), _verdict(*port_out)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES + (SCAN_BF16,))
 @pytest.mark.parametrize("name", sorted(SIMPLEX_SMALL))
 def test_general_form_cases_match_jax(name, dtype):
     build, overrides = SIMPLEX_SMALL[name]
@@ -123,7 +130,7 @@ def test_general_form_cases_match_jax(name, dtype):
     assert port_verdict == jax_verdict
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("dtype", DTYPES + (SCAN_BF16,))
 @pytest.mark.parametrize("seed", range(30))
 def test_fuzz_instances_match_jax(seed, dtype):
     build = lambda p: p.random_instance(np.random.default_rng(seed))[0]  # noqa: E731

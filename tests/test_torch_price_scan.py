@@ -11,6 +11,15 @@ Tolerances, as a bound on |difference| / (1 + max|expected|): f32 1e-5,
 and f64 against the XLA formula 1e-12 (summation order only).  The Pallas
 kernel accumulates its dot in f32 even for f64 inputs (pallas_scan.py:35,
 preferred_element_type=f32), so f64 against it is held to the f32 bound.
+bf16 (inputs made in f32 from the same seed and rounded to bf16 by each
+package) 5e-2, as chip_smoke.py holds the kernel: S and every output are
+rounded to 8 bits, and the two packages round the epilogue's steps at other
+places.
+
+The kernel's launch (``price_scan.tiling``) is checked here for what the
+kernel's indexing relies on: every row and column of the tableau summed
+exactly once, every column finished (reduced over the cluster and written)
+exactly once, no cluster rank without rows.
 """
 
 import numpy as np
@@ -25,7 +34,8 @@ from tests.test_pallas_ops import _formula
 from tests.test_torch_batch import one_torch_thread  # noqa: F401  (autouse)
 
 SHAPES = [(8, 128), (64, 256), (96, 1280)]
-DTYPES = {"float32": (np.float32, 1e-5), "float64": (np.float64, 1e-12)}
+DTYPES = {"float32": (np.float32, 1e-5), "float64": (np.float64, 1e-12),
+          "bfloat16": (np.float32, 5e-2)}
 
 
 def _inputs(M, N, np_dtype, seed):
@@ -38,17 +48,23 @@ def _inputs(M, N, np_dtype, seed):
     return P, A, c, g, gq
 
 
-def _port(P, A, c, g, gq):
-    as_t = torch.from_numpy
-    d, gnew = price_scan.fused_price_scan(
-        as_t(P), as_t(A), as_t(c), as_t(g), torch.tensor(gq)
-    )
+def _port(P, A, c, g, gq, dtype=None):
+    """The port's scan on the numpy inputs (rounded to ``dtype`` if given),
+    its outputs as numpy (in f32 for bf16)."""
+    def as_t(x):
+        t = torch.as_tensor(x)
+        return t if dtype is None else t.to(dtype)
+
+    d, gnew = price_scan.fused_price_scan(as_t(P), as_t(A), as_t(c), as_t(g), as_t(gq))
+    if dtype is torch.bfloat16:
+        assert d.dtype == gnew.dtype == torch.bfloat16
+        return d.float().numpy(), gnew.float().numpy()
     return d.numpy(), gnew.numpy()
 
 
 def _assert_close(ours, theirs, tol):
     for a, b in zip(ours, theirs):
-        b = np.asarray(b)
+        b = np.asarray(b, dtype=np.float64)
         scale = 1.0 + float(np.abs(b).max())
         np.testing.assert_allclose(a, b, rtol=0, atol=tol * scale)
 
@@ -59,14 +75,16 @@ def test_plain_matches_jax_kernel_and_formula(M, N, dtype):
     np_dtype, atol = DTYPES[dtype]
     P, A, c, g, gq = _inputs(M, N, np_dtype, M + N)
     launches = price_scan.LAUNCHES
-    d, gnew = _port(P, A, c, g, gq)
+    bf16 = dtype == "bfloat16"
+    d, gnew = _port(P, A, c, g, gq, torch.bfloat16 if bf16 else None)
     assert price_scan.LAUNCHES == launches  # CPU tensors: the plain version
     assert d.dtype == np_dtype and gnew.dtype == np_dtype
 
-    jx = [jnp.asarray(x) for x in (P, A, c, g)]
-    _assert_close((d, gnew), _formula(*jx, jnp.asarray(gq)), atol)
-    d_k, g_k = jax_fused_price_scan(*jx, jnp.asarray(gq), interpret=True)
-    _assert_close((d, gnew), (d_k, g_k), 1e-5)
+    jx = [jnp.asarray(x).astype(jnp.bfloat16) if bf16 else jnp.asarray(x)
+          for x in (P, A, c, g, gq)]
+    _assert_close((d, gnew), _formula(*jx), atol)
+    d_k, g_k = jax_fused_price_scan(*jx, interpret=True)
+    _assert_close((d, gnew), (d_k, g_k), atol if bf16 else 1e-5)
 
 
 @pytest.mark.parametrize("M,N", [(100, 1000), (7, 130), (1, 3)])
@@ -80,12 +98,41 @@ def test_plain_ragged_n_matches_formula(M, N):
     )
 
 
+def _blocks(M, N, t):
+    """(rows, columns summed, columns finished) of every CTA of the launch
+    ``t``, as csrc/price_scan.cu indexes them: rank r of a tile's cluster
+    sums rows [r rows_per_rank, (r + 1) rows_per_rank) of the tile's
+    columns, and finishes (adds the cluster's sums of, and writes) columns
+    [r own, (r + 1) own) of the tile, own = tile_cols / cluster."""
+    own = t.tile_cols // t.cluster
+    for col0 in range(0, N, t.tile_cols):
+        cols = min(t.tile_cols, N - col0)
+        for rank in range(t.cluster):
+            row0 = min(M, rank * t.rows_per_rank)
+            yield (range(row0, min(M, row0 + t.rows_per_rank)),
+                   range(col0, col0 + cols),
+                   range(col0 + min(cols, rank * own), col0 + min(cols, (rank + 1) * own)))
+
+
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 @pytest.mark.parametrize("M,N", [(1, 1), (8, 128), (1024, 5120), (1920, 5248),
                                  (100000, 7)])
-def test_row_splits_cover_every_row(M, N):
-    splits, rows = price_scan._splits(M, N)
-    assert splits >= 1 and rows >= 1
-    assert (splits - 1) * rows < M <= splits * rows  # no empty split
+def test_tiling_covers_every_row_and_column(M, N, itemsize):
+    t = price_scan.tiling(M, N, itemsize)
+    assert t.tile_cols * itemsize in (128, 256, 512) and t.cluster in (1, 2, 4, 8)
+    tiles = {}  # first column -> (columns, row ranges of its ranks)
+    finished = np.zeros(N, dtype=np.int64)
+    for rows, cols, done in _blocks(M, N, t):
+        assert len(rows) >= 1  # no rank without rows
+        assert done.start >= cols.start and done.stop <= cols.stop
+        tiles.setdefault(cols.start, (cols, []))[1].append(rows)
+        finished[done.start:done.stop] += 1
+    assert len(tiles) * t.cluster == sum(len(r) for _c, r in tiles.values())
+    assert [c for c, _r in sorted(tiles.values(), key=lambda x: x[0].start)] == [
+        range(s, min(N, s + t.tile_cols)) for s in range(0, N, t.tile_cols)]
+    for cols, ranks in tiles.values():  # each tile's ranks partition the rows
+        assert [i for r in ranks for i in r] == list(range(M))
+    assert (finished == 1).all()
 
 
 def test_wrapper_rejects_other_devices():
