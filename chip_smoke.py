@@ -47,11 +47,26 @@ Takes no arguments and needs no network.  Phases, one line each (or more):
                    solve_relaxation (flow 4);
   7. main/real     the generated LP of relp_tpu_torch.testing at m=384,
                    n=1536 through solve_general_form: certified, the pinned
-                   exact-objective digest, and HiGHS agreement to 1e-6; then
-                   the scan kernel against its plain version on the inputs
-                   of its first scan, timed (main/real/kernel);
-  8. chunk         marginal per-pivot time of run_chunk at the 1024 x 4096
-                   bench problem, kernel path and plain path;
+                   exact-objective digest, and HiGHS agreement to 1e-6;
+                   DenseEngine's chunks replayed from CUDA graphs
+                   (graphs=captures/replays/capture seconds), peak device
+                   memory; then the scan kernel against its plain version
+                   on the inputs of its first scan, timed (main/real/kernel);
+                   then main/real/eager: the same solve with the chunks
+                   eager, which must give the same pivots, basis and scan
+                   launches (main/real/graph: the solve seconds and peak
+                   memory of both);
+  8. chunk         marginal per-pivot time of the chunk at the 1024 x 4096
+                   bench problem: the eager run_chunk with the kernel and
+                   with the plain version, and the chunk replayed from its
+                   CUDA graph; each path's 60-pivot chunk under the
+                   profiler (chunk/profile: device busy and idle share,
+                   device kernels and host launches a pivot);
+  8b. chunk/graph  from one state, an eager and a graphed chunk of each
+                   kind (primal steepest edge, with stop_at_zero, in f64,
+                   with a bf16 scan tableau, dual) at 1024 x 4096 and at
+                   128 x 384: every output bitwise equal, the capture's
+                   seconds, a replay's and the eager chunk's ms;
   9. batch/resident, batch/blocked
                    solve_batch (default config) on the two scenario
                    families of relp_tpu_torch.testing (256 x 128x384 and
@@ -72,7 +87,8 @@ Takes no arguments and needs no network.  Phases, one line each (or more):
                    over a window in which every LP pivots.
 
 The other solve modes follow, each with every kernel's launch count from 0
-just before it (a `launches` line after each):
+just before it (a `launches` line after each, with the captured chunks'
+graphs=captures/replays/capture seconds of the path):
 
  12b. main/bf16    main/real's LP with SolverConfig(scan_dtype="bfloat16"),
                    at full width, 12,000 pivots a rung at most: certified
@@ -678,11 +694,17 @@ def phase_main_real(torch, np, label="main/real", scan_dtype="float32", main_res
                          when=lambda _P, A, *_rest: A.dtype == scans), \
             _recording_rungs(rungs):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        graphs0, launches0 = _graph_counts(), price_scan.LAUNCHES
         t0 = time.perf_counter()
         result, solution = solve_general_form(
             gf, SolverConfig(scan_dtype=scan_dtype, **limits))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    graph_counts = {k: v - graphs0[k] for k, v in _graph_counts().items()}
+    _SOLVES[label] = dict(result=result, scan_launches=price_scan.LAUNCHES - launches0,
+                          peak_mb=torch.cuda.max_memory_allocated() / 2**20,
+                          solve_s=result.stats.wall_time_s - result.stats.certify_time_s)
     by_dtype = dict(price_scan.LAUNCHES_BY_DTYPE)
     _check(result.status is SolveStatus.FINITE_OPTIMUM, f"{label}: status {result.status}")
     _check(result.stats.certified, f"{label}: not certified")
@@ -709,38 +731,72 @@ def phase_main_real(torch, np, label="main/real", scan_dtype="float32", main_res
         certify_s=f"{result.stats.certify_time_s:.3f}",
         objective=f"{objective:.12f}", digest_ok=True, highs_rel_diff=f"{rel:.2e}",
         price_scan_launches=price_scan.LAUNCHES,
+        solve_scan_launches=_SOLVES[label]["scan_launches"],
         **{f"scan_launches_{name}": n for name, n in by_dtype.items()},
+        graphs=_graph_fields(graph_counts),
+        peak_device_mb=f"{_SOLVES[label]['peak_mb']:.1f}",
+        peak_reserved_mb=f"{torch.cuda.max_memory_reserved() / 2**20:.1f}",
     )
     return result, lambda: _replay_scan(torch, f"{label}/kernel", kept["fused_price_scan"][0])
+
+
+# The single-LP solves of main/real and main/real/eager: result, the scan
+# launches of the solve alone, peak device MB, seconds of the solve without
+# certification.
+_SOLVES = {}
+
+
+def _graph_counts():
+    """The captured chunks' counters (relp_tpu_torch.simplex.graphs)."""
+    from relp_tpu_torch.simplex import graphs
+
+    return {"captures": graphs.CAPTURES, "replays": graphs.REPLAYS,
+            "capture_s": graphs.CAPTURE_SECONDS}
+
+
+def _graph_fields(counts):
+    """captures/replays/capture seconds (the warm-up included)."""
+    return f"{counts['captures']}/{counts['replays']}/{counts['capture_s']:.2f}"
+
+
+def phase_main_real_eager(torch, np, main_result):
+    """main/real again with DenseEngine's chunks eager (graphs.DEVICE_TYPES
+    emptied for the phase): the same pivots, digest and scan launches as the
+    graphed solve, its wall split and peak device memory beside them."""
+    from relp_tpu_torch.simplex import graphs
+
+    kept = graphs.DEVICE_TYPES
+    graphs.DEVICE_TYPES = ()
+    try:
+        result, _replay = phase_main_real(torch, np, "main/real/eager",
+                                          main_result=main_result)
+    finally:
+        graphs.DEVICE_TYPES = kept
+    graphed, eager = _SOLVES["main/real"], _SOLVES["main/real/eager"]
+    _check(result.stats.iterations == main_result.stats.iterations
+           and result.basis == main_result.basis,
+           f"main/real/eager: {result.stats.iterations} pivots, graphed "
+           f"{main_result.stats.iterations}, same basis {result.basis == main_result.basis}")
+    _check(eager["scan_launches"] == graphed["scan_launches"],
+           f"main/real/eager: {eager['scan_launches']} scan launches, graphed "
+           f"{graphed['scan_launches']}")
+    _line("main/real/graph", pivots=result.stats.iterations, same_pivots=True,
+          same_basis=True,
+          scan_launches=graphed["scan_launches"], eager_scan_launches=eager["scan_launches"],
+          solve_s=f"{graphed['solve_s']:.3f}", eager_solve_s=f"{eager['solve_s']:.3f}",
+          peak_device_mb=f"{graphed['peak_mb']:.1f}",
+          eager_peak_device_mb=f"{eager['peak_mb']:.1f}", **_CARD)
 
 
 def _bench_chunk_inputs(torch, np, device):
     """(state0, A, c, mask) of the chunk loop's bench problem on the card:
     testing.synthetic_problem(m=1024, n=4096, pad=128, seed=7), f32,
     phase-1 costs, the slack/artificial start."""
-    from relp_tpu_torch.simplex.state import RUNNING, state_from_numpy
-    from relp_tpu_torch.testing import synthetic_problem
+    from relp_tpu_torch.testing import synthetic_start
 
-    A, b, c1, _c2, cand, basis = synthetic_problem(
-        m=1024, n=4096, pad=128, seed=7, dtype=np.float32
-    )
-    M, N = A.shape
-    in_basis = np.zeros(N, dtype=bool)
-    in_basis[basis] = True
-    cB = c1[basis]
-    zero = np.int32(0)
-    state0 = state_from_numpy(
-        dict(
-            Binv=np.eye(M, dtype=np.float32), basis=basis, xB=b, pi=cB,
-            obj=np.float32(cB @ b), in_basis=in_basis,
-            gamma=np.ones(N, dtype=np.float32), iteration=zero,
-            status=np.int32(RUNNING), degen_count=zero, inner=zero,
-            price_start=zero, d=(c1 - cB @ A).astype(np.float32),
-        ),
-        device,
-    )
-    return (state0, torch.as_tensor(A, device=device),
-            torch.as_tensor(c1, device=device), torch.as_tensor(cand, device=device))
+    state0, A, c1, _c2, cand = synthetic_start(m=1024, n=4096, pad=128, seed=7,
+                                               dtype=np.float32, device=device)
+    return state0, A, c1, cand
 
 
 def _marginal_ms_per_pivot(torch, np, runs, reps: int = 8):
@@ -769,19 +825,25 @@ def _marginal_ms_per_pivot(torch, np, runs, reps: int = 8):
 
 
 def phase_chunk_loop(torch, np, device, times):
+    """The chunk loop at the bench problem, three paths interleaved: the
+    eager chunk with the kernel (``kernel``) and with the plain version
+    swapped in (``plain``), and the chunk captured as a CUDA graph and
+    replayed (``graph``, simplex/graphs.py, as DenseEngine runs it); then
+    a 60-pivot chunk of the kernel and graph paths under the profiler."""
     from relp_tpu_torch.ops import price_scan
-    from relp_tpu_torch.simplex import kernels
+    from relp_tpu_torch.simplex import graphs, kernels
 
     state0, A_d, c_d, cand_d = _bench_chunk_inputs(torch, np, device)
     M, N = A_d.shape
+    captured = graphs.ChunkGraphs()
+    kw = dict(pricing=kernels.PRICE_STEEPEST, opt_tol=1e-7, pivot_tol=1e-7,
+              degen_tol=1e-7)
 
-    def run(chunk):
+    def run(chunk, graph=False):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = kernels.run_chunk(
-            state0, A_d, A_d, c_d, cand_d, pricing=kernels.PRICE_STEEPEST,
-            chunk=chunk, opt_tol=1e-7, pivot_tol=1e-7, degen_tol=1e-7,
-        )
+        fn = captured.run_chunk if graph else kernels.run_chunk
+        out = fn(state0, A_d, A_d, c_d, cand_d, chunk=chunk, **kw)
         pivots = int(out.iteration)  # forces the sync inside the timed region
         return time.perf_counter() - t0, pivots
 
@@ -798,33 +860,112 @@ def phase_chunk_loop(torch, np, device, times):
 
     def with_scan(path):
         def timed(chunk):
+            if path == "graph":
+                return run(chunk, graph=True)
             with scan(path):
                 return run(chunk)
         return timed
 
     per_pivot = _marginal_ms_per_pivot(
-        torch, np, {path: with_scan(path) for path in ("kernel", "plain")})
+        torch, np, {path: with_scan(path) for path in ("kernel", "plain", "graph")})
     scan = times[(1024, 5120, torch.float32)]
     kern_ms, plain_ms = scan["kernel_ms"], scan["plain_ms"]
-    busy_ms, launches, top = _device_busy(torch, lambda: run(60), 60)
-    idle = 1.0 - busy_ms / per_pivot["kernel"][0] if busy_ms else None
     _line(
         "chunk", shape=f"{M}x{N}", dtype="float32", pricing="steepest",
         method="median of 8 interleaved (300-10)-pivot differences",
         pivots=per_pivot["kernel"][3],
         kernel_path_ms_per_pivot=f"{per_pivot['kernel'][0]:.4f}",
         plain_path_ms_per_pivot=f"{per_pivot['plain'][0]:.4f}",
+        graph_path_ms_per_pivot=f"{per_pivot['graph'][0]:.4f}",
+        graph_path_pivots=per_pivot["graph"][3],
         kernel_path_q1_q3="/".join(f"{q:.4f}" for q in per_pivot["kernel"][1:3]),
         plain_path_q1_q3="/".join(f"{q:.4f}" for q in per_pivot["plain"][1:3]),
-        scan_kernel_ms=f"{kern_ms:.5f}", scan_plain_ms=f"{plain_ms:.5f}",
+        graph_path_q1_q3="/".join(f"{q:.4f}" for q in per_pivot["graph"][1:3]),
+        scan_kernel_ms=f"{kern_ms:.5f}", scan_plain_ms=f"{plain_ms:.5f}", **_CARD,
     )
-    _line(
-        "chunk/profile", pivots=60,
-        device_busy_ms_per_pivot=f"{busy_ms:.4f}" if busy_ms else "not measured",
-        device_idle_share=f"{idle:.3f}" if idle is not None else "not measured",
-        kernel_launches_per_pivot=f"{launches / 60:.1f}",
-        top_kernels=";".join(f"{name}:{ms:.4f}ms" for name, ms in top),
-    )
+    _check(per_pivot["graph"][3] == per_pivot["kernel"][3],
+           f"chunk: the graph path took {per_pivot['graph'][3]} pivots, the "
+           f"kernel path {per_pivot['kernel'][3]}")
+    for path in ("kernel", "graph"):
+        busy_ms, launches, top = _device_busy(
+            torch, lambda: run(60, graph=path == "graph"), 60)
+        host = _host_launches(torch, lambda: run(60, graph=path == "graph"))
+        # The profiler's kernel durations can sum above the unprofiled
+        # wall time (it traces every node of a graph): no idle share then.
+        busy_over_wall = busy_ms / per_pivot[path][0]
+        _line(
+            "chunk/profile", path=path, pivots=60,
+            device_busy_ms_per_pivot=f"{busy_ms:.4f}" if busy_ms else "not measured",
+            wall_ms_per_pivot=f"{per_pivot[path][0]:.4f}",
+            busy_over_wall=f"{busy_over_wall:.3f}",
+            device_idle_share=(f"{1.0 - busy_over_wall:.3f}" if 0 < busy_over_wall <= 1
+                               else "not measured"),
+            kernel_launches_per_pivot=f"{launches / 60:.1f}",
+            host_launches_per_pivot=f"{sum(host.values()) / 60:.3f}",
+            host_launches=";".join(f"{name}:{n}" for name, n in sorted(host.items())),
+            top_kernels=";".join(f"{name}:{ms:.4f}ms" for name, ms in top),
+        )
+
+
+def _host_launches(torch, fn):
+    """{CUDA runtime or driver call: count} of the work ``fn`` hands the
+    card (kernel and graph launches, copies, sets), read from the
+    profiler's raw host events."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    starts = ("cudaLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset", "cuLaunch",
+              "cuGraphLaunch", "cuMemcpy", "cuMemset")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    return Counter(e.name() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CPU and e.name().startswith(starts))
+
+
+def phase_chunk_graph(torch, np, device):
+    """From one state, one eager and one graphed chunk of each kind of
+    testing.chunk_case (primal steepest edge, with stop_at_zero, in f64,
+    with a bf16 scan tableau, dual) at the bench problem's 1024 x 4096 and
+    at the node-LP shape 128 x 384: whether every output is bitwise equal,
+    the pivots, the capture's seconds (warm-up included), a replay's ms
+    and the eager chunk's ms (host clock, a sync at the end of each)."""
+    from relp_tpu_torch.simplex import graphs, kernels
+    from relp_tpu_torch.testing import CHUNK_KINDS, chunk_case, synthetic_start
+
+    differ = []
+    for m, n in ((1024, 4096), (128, 256)):
+        state, A, c1, _c2, mask = synthetic_start(m=m, n=n, pad=128, seed=7,
+                                                  dtype=np.float32, device=device)
+        for kind in CHUNK_KINDS:
+            name, args, kw = chunk_case(kind, state, A, c1, mask)
+
+            def timed(fn):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                return out, (time.perf_counter() - t0) * 1e3
+
+            eager, eager_ms = timed(getattr(kernels, name))
+            cache, capture_s = graphs.ChunkGraphs(), graphs.CAPTURE_SECONDS
+            graphed, _first_ms = timed(getattr(cache, name))
+            capture_s = graphs.CAPTURE_SECONDS - capture_s
+            again, replay_ms = timed(getattr(cache, name))
+            fields = [f for f, g, e, a in zip(eager._fields, graphed, eager, again)
+                      if not (torch.equal(g.reshape(-1).view(torch.uint8),
+                                          e.reshape(-1).view(torch.uint8))
+                              and torch.equal(a.reshape(-1).view(torch.uint8),
+                                              e.reshape(-1).view(torch.uint8)))]
+            if fields:
+                differ.append(f"{kind}@{tuple(A.shape)}:{','.join(fields)}")
+            _line("chunk/graph", shape="x".join(map(str, A.shape)), kind=kind,
+                  pivots=int(eager.iteration) - int(args[0].iteration),
+                  bitwise_equal=not fields, differing_fields=",".join(fields) or "none",
+                  capture_s=f"{capture_s:.3f}", replay_ms=f"{replay_ms:.3f}",
+                  eager_ms=f"{eager_ms:.3f}", **_CARD)
+    return differ
 
 
 def _device_busy(torch, fn, pivots: int):
@@ -1356,11 +1497,14 @@ def _launch_counts():
         "batched_pivot_chunk": batch_pivot.LAUNCHES_RESIDENT,
         "batched_pivot_chunk_blocked": batch_pivot.LAUNCHES_BLOCKED,
         **{f"probe_dot_{kind}": probe.LAUNCHES[kind] for kind in probe.KINDS},
+        # DenseEngine's captured chunks: captures/replays/capture seconds.
+        "graphs": _graph_fields(_graph_counts()),
     }
 
 
 def _zero_launch_counts():
     from relp_tpu_torch.ops import batch_pivot, price_scan
+    from relp_tpu_torch.simplex import graphs
     from relp_tpu_torch.tools import probe_dot_precision as probe
 
     price_scan.LAUNCHES = 0
@@ -1369,6 +1513,8 @@ def _zero_launch_counts():
     batch_pivot.LAUNCHES_RESIDENT = batch_pivot.LAUNCHES_BLOCKED = 0
     for kind in probe.KINDS:
         probe.LAUNCHES[kind] = 0
+    graphs.CAPTURES = graphs.REPLAYS = 0
+    graphs.CAPTURE_SECONDS = 0.0
 
 
 def _rows_hold(gf, values) -> bool:
@@ -2510,8 +2656,11 @@ def main() -> int:
     launches = price_scan.LAUNCHES
     _check(launches > 0, "the main path never launched the scan kernel")
     main_scan = main_replay()  # the kernel on main/real's inputs, not counted
+    _timed("main/real/eager", phase_main_real_eager, torch, np, main_result)
 
     _timed("chunk", phase_chunk_loop, torch, np, device, times)
+    differ = _timed("chunk/graph", phase_chunk_graph, torch, np, device)
+    _check(not differ, f"chunk/graph: graphed chunks differ from eager ones: {differ}")
 
     # The scenario-batch path, once per family; the counts are each run's.
     batch_launches = {}

@@ -52,6 +52,7 @@ from relp_tpu_torch.parallel.batch import (
     megakernel_run_chunk,
 )
 from relp_tpu_torch.simplex.driver import _PRICING_CODES, warm_dual_feasible
+from relp_tpu_torch.simplex import graphs
 from relp_tpu_torch.simplex.engine import DenseEngine, scan_dtype
 from relp_tpu_torch.providers.base import MatrixProvider
 from relp_tpu_torch.simplex.kernels import PRICE_STEEPEST, noisy_f32_matmul
@@ -491,6 +492,9 @@ def solve_batch(
     n_rescued = 0
     _A64_cache = {}
     _debug_gates = _os.environ.get("RELP_TPU_BATCH_DEBUG", "")
+    # The single-LP fallbacks' captured chunks, one cache for the call: a
+    # wave's LPs have one shape, so each kind of chunk is captured once.
+    fallback_graphs = graphs.ChunkGraphs()
 
     def _host_f64_rescue(k, problem):
         """Basis-exact xB/obj in f64 on the host (one LU solve) for an LP
@@ -563,7 +567,8 @@ def solve_batch(
                 flush=True,
             )
         if not ok or not numerics_ok or not artificial_ok:
-            results.append(_single_lp_fallback(provider, cfg, certify))
+            results.append(_single_lp_fallback(provider, cfg, certify,
+                                               fallback_graphs))
             n_fallback += 1
             continue
 
@@ -593,7 +598,8 @@ def solve_batch(
             if not result.stats.certified:
                 # Numerically troubled LPs go to the single-LP driver (with
                 # its f64 escalation) rather than ship uncertified.
-                results.append(_single_lp_fallback(provider, cfg, certify))
+                results.append(_single_lp_fallback(provider, cfg, certify,
+                                                   fallback_graphs))
                 n_fallback += 1
                 continue
         else:
@@ -618,15 +624,18 @@ def solve_batch(
 
 
 def _single_lp_fallback(
-    provider: MatrixProvider, cfg: SolverConfig, certify: bool
+    provider: MatrixProvider, cfg: SolverConfig, certify: bool,
+    chunk_graphs: graphs.ChunkGraphs,
 ) -> OptimizationResult:
     """Solve one LP through the port's single-LP driver (rank repair, Bland,
-    f64 escalation); used for batch members that failed the lockstep path."""
+    f64 escalation); used for batch members that failed the lockstep path.
+    Its chunks on a card replay from ``chunk_graphs`` (``graphs.shared``)."""
     from relp_tpu_torch.simplex.driver import solve_relaxation
 
     # device_refactor is a batched-chunk notion; dropping it re-clamps
     # chunk_size <= refactor_period in __post_init__.
     single_cfg = dataclasses.replace(cfg, certify=certify, device_refactor=False)
-    result = solve_relaxation(provider, single_cfg)
+    with graphs.shared(chunk_graphs):
+        result = solve_relaxation(provider, single_cfg)
     result.stats.batch_fallback = True
     return result

@@ -1,7 +1,9 @@
 """Basis-inverse engines: the port of ``relp_tpu.simplex.engine``.
 
 * :class:`DenseEngine`: explicit dense inverse with rank-1 product-form
-  updates (the fast path).
+  updates (the fast path).  On a CUDA card, with no mesh, its primal and
+  dual chunks run as captured CUDA graphs (``simplex/graphs.py``); on the
+  CPU and under a mesh they run eagerly.
 * :class:`LUEngine`: f32 LU factors + eta ring (``simplex/lu.py``), the
   robustness and cross-check backend, ``basis_inverse="lu"``.
 * :class:`DoubleFloatEngine`: the double-float (two-f32) carry of
@@ -18,7 +20,7 @@ import torch
 from relp_tpu_torch.simplex.lowering import DeviceProblem
 from relp_tpu_torch.simplex.result import SolveStats
 from relp_tpu_torch.config import SolverConfig
-from relp_tpu_torch.simplex import kernels
+from relp_tpu_torch.simplex import graphs, kernels
 from relp_tpu_torch.simplex import lu as lu_mod
 from relp_tpu_torch.simplex.state import RUNNING, SimplexState
 from relp_tpu_torch.utils.logging import get_logger
@@ -61,6 +63,17 @@ class DenseEngine:
         # A ``parallel.sharded.ColumnShard`` when the tableau is sharded by
         # column over a mesh: one engine per lowering (``make_engine``).
         self.shard = shard
+        self._graphs: Optional[graphs.ChunkGraphs] = None
+
+    def _chunk_graphs(self, state) -> Optional[graphs.ChunkGraphs]:
+        """This engine's captured chunks when ``state`` lies on a card and
+        the columns are not sharded; None when the chunk runs eagerly (the
+        CPU, and a mesh: capturing its collectives is not done)."""
+        if self.shard is not None or state.Binv.device.type not in graphs.DEVICE_TYPES:
+            return None
+        if self._graphs is None:
+            self._graphs = graphs.cache()
+        return self._graphs
 
     def init_state(self, problem: DeviceProblem, cfg: SolverConfig) -> SimplexState:
         state = self._init_state(problem, cfg)
@@ -191,12 +204,7 @@ class DenseEngine:
         self, state, A_scan, A_full, c, candidate_mask, mode, cfg,
         stop_at_zero=False,
     ):
-        return kernels.run_chunk(
-            state,
-            A_scan,
-            A_full,
-            c,
-            candidate_mask,
+        kw = dict(
             pricing=mode,
             chunk=cfg.chunk_size,
             opt_tol=cfg.opt_tol,
@@ -204,7 +212,12 @@ class DenseEngine:
             degen_tol=cfg.feas_tol,
             stop_at_zero=stop_at_zero,
             noisy_scan=kernels.noisy_f32_matmul(),
-            shard=self.shard,
+        )
+        captured = self._chunk_graphs(state)
+        if captured is not None:
+            return captured.run_chunk(state, A_scan, A_full, c, candidate_mask, **kw)
+        return kernels.run_chunk(
+            state, A_scan, A_full, c, candidate_mask, shard=self.shard, **kw
         )
 
     def dual_run_chunk(self, state, A_scan, A_full, c, candidate_mask, cfg):
@@ -213,18 +226,16 @@ class DenseEngine:
                 "the dual simplex does not run column-sharded (the JAX "
                 "package turns the dual warm restart off under a mesh)"
             )
-        return kernels.dual_run_chunk(
-            state,
-            A_scan,
-            A_full,
-            c,
-            candidate_mask,
+        kw = dict(
             chunk=cfg.chunk_size,
             opt_tol=cfg.opt_tol,
             pivot_tol=cfg.pivot_tol,
             feas_tol=cfg.feas_tol,
             noisy_scan=kernels.noisy_f32_matmul(),
         )
+        captured = self._chunk_graphs(state)
+        run = kernels.dual_run_chunk if captured is None else captured.dual_run_chunk
+        return run(state, A_scan, A_full, c, candidate_mask, **kw)
 
     def recompute_gamma(self, state, A_scan):
         return state._replace(

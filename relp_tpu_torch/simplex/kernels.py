@@ -15,7 +15,10 @@ Differences from the JAX code, and why:
   pivot would synchronise every pivot.  Once inactive, an iteration is a
   no-op (the JAX iteration is already a masked no-op after termination).
   On the CPU, where a read costs nothing, the loop stops at the first
-  inactive iteration; the result is the same.
+  inactive iteration; the result is the same.  On CUDA the whole loop
+  makes no host read and no host-to-device copy, so that
+  ``relp_tpu_torch.simplex.graphs`` can capture it as one CUDA graph, the
+  counterpart of the JAX package's jit-compiled ``while_loop``.
 * Index tensors are int64 (``basis`` stays int32 in the state); single
   elements are read with ``index_select`` and written with ``index_copy_`` /
   ``index_fill_`` on tensors this module has just created, never on a tensor
@@ -211,7 +214,7 @@ def _iteration(
         if noisy:
             threshold = torch.where(
                 state.inner == 0,
-                torch.tensor(opt_tol, dtype=scan_dtype, device=d.device),
+                torch.full((), opt_tol, dtype=scan_dtype, device=d.device),
                 threshold,
             )
     else:
@@ -359,6 +362,7 @@ def run_chunk(
     stop_at_zero: bool = False,
     noisy_scan: bool = False,
     shard=None,
+    early_exit: Optional[bool] = None,
 ) -> SimplexState:
     """Run up to ``chunk`` pivots with no host read on CUDA.
 
@@ -367,15 +371,18 @@ def run_chunk(
     the objective is (near) zero: the phase-1 termination rule.  With a
     ``shard`` the column-sized inputs are this rank's block (see
     ``relp_tpu_torch.parallel.sharded``); the replicated state makes every
-    rank take the same branches.
+    rank take the same branches.  ``early_exit`` stops at the first
+    inactive iteration, which reads the status on the host each iteration;
+    by default it does so on the CPU only (a captured chunk passes False).
     """
     state, c_scan = _chunk_entry(state, A_scan, c)
-    on_cpu = A_scan.device.type == "cpu"
+    if early_exit is None:
+        early_exit = A_scan.device.type == "cpu"
     for _ in range(chunk):
         active = state.status == RUNNING
         if stop_at_zero:
             active = active & (state.obj > 1e-9)
-        if on_cpu and not bool(active):
+        if early_exit and not bool(active):
             break
         state = _iteration(
             state, A_scan, A_full, c, c_scan, candidate_mask, active,
@@ -503,13 +510,16 @@ def dual_run_chunk(
     pivot_tol: float,
     feas_tol: float,
     noisy_scan: bool = False,
+    early_exit: Optional[bool] = None,
 ) -> SimplexState:
-    """Run up to ``chunk`` dual pivots with no host read on CUDA."""
+    """Run up to ``chunk`` dual pivots with no host read on CUDA
+    (``early_exit`` as in ``run_chunk``)."""
     state, _ = _chunk_entry(state, A_scan, c)
-    on_cpu = A_scan.device.type == "cpu"
+    if early_exit is None:
+        early_exit = A_scan.device.type == "cpu"
     for _ in range(chunk):
         active = state.status == RUNNING
-        if on_cpu and not bool(active):
+        if early_exit and not bool(active):
             break
         state = _dual_iteration(
             state, A_scan, A_full, c, candidate_mask, active,

@@ -226,3 +226,62 @@ def synthetic_problem(m=32, n=64, pad=32, dtype=np.float64, seed=0):
     cand[:n] = True
     basis = np.arange(art, art + M, dtype=np.int32)
     return A, b, c1, c2, cand, basis
+
+
+def synthetic_start(m=32, n=64, pad=32, dtype=np.float64, seed=0, device="cpu"):
+    """``synthetic_problem`` at its artificial start as the inputs of a
+    chunk on ``device``: (state, A, c1, c2, candidate_mask), the state
+    priced with the phase-1 costs c1."""
+    import torch
+
+    from relp_tpu_torch.simplex.state import RUNNING, state_from_numpy
+
+    A, b, c1, c2, cand, basis = synthetic_problem(m=m, n=n, pad=pad, dtype=dtype,
+                                                  seed=seed)
+    M, N = A.shape
+    in_basis = np.zeros(N, dtype=bool)
+    in_basis[basis] = True
+    cB = c1[basis]
+    zero = np.int32(0)
+    state = state_from_numpy(
+        dict(Binv=np.eye(M, dtype=dtype), basis=basis, xB=b, pi=cB,
+             obj=np.asarray(cB @ b, dtype=dtype), in_basis=in_basis,
+             gamma=np.ones(N, dtype=dtype), iteration=zero, status=np.int32(RUNNING),
+             degen_count=zero, inner=zero, price_start=zero,
+             d=(c1 - cB @ A).astype(dtype)),
+        device,
+    )
+    return (state, *(torch.as_tensor(x, device=device) for x in (A, c1, c2, cand)))
+
+
+# The kinds of chunk that ``chunk_case`` builds: primal steepest edge, the
+# same with the phase-1 stop at zero, in f64, with the scans on a bf16 copy
+# of the tableau, and the dual chunk.
+CHUNK_KINDS = ("steepest", "stop_at_zero", "float64", "bfloat16_scan", "dual")
+
+
+def chunk_case(kind, state, A, c, candidate_mask, chunk=60):
+    """(name, args, kwargs) of one kind of chunk (``CHUNK_KINDS``) from an
+    f32 start ``state`` of ``synthetic_start``: ``name`` is the function of
+    ``relp_tpu_torch.simplex.kernels`` (and of ``graphs.ChunkGraphs``) to
+    call.  The dual chunk starts from the basic values negated, so that it
+    pivots."""
+    import torch
+
+    from relp_tpu_torch.simplex.kernels import PRICE_STEEPEST
+
+    tols = dict(opt_tol=1e-7, pivot_tol=1e-7)
+    primal = dict(pricing=PRICE_STEEPEST, chunk=chunk, degen_tol=1e-7, **tols)
+    if kind == "dual":
+        return ("dual_run_chunk", (state._replace(xB=-state.xB), A, A, c, candidate_mask),
+                dict(chunk=chunk, feas_tol=1e-7, **tols))
+    if kind == "float64":
+        state = state._replace(**{f: getattr(state, f).double() for f in
+                                  ("Binv", "xB", "pi", "obj", "gamma", "d")})
+        A, c = A.double(), c.double()
+    A_scan = A
+    if kind == "bfloat16_scan":
+        A_scan = A.to(torch.bfloat16)
+        state = state._replace(d=state.d.to(torch.bfloat16))
+    return ("run_chunk", (state, A_scan, A, c, candidate_mask),
+            dict(primal, stop_at_zero=kind == "stop_at_zero"))

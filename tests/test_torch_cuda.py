@@ -22,7 +22,9 @@ agree with their plain version on the card (1e-6 * max|plain|, the outer
 product bitwise, two launches bitwise equal).
 The three other solve modes (``--mip``, ``--first-order``, ``--basis-inverse
 lu``) give the CPU's payload on knap6, and PDHG on CUDA walks the CPU's
-iterations.
+iterations.  A dense chunk replayed from its CUDA graph gives the eager
+chunk's bits, primal and dual, at an aligned, an unaligned and a ragged
+shape.
 """
 
 import os
@@ -123,6 +125,45 @@ def test_scan_kernel_rejects_bad_arguments(cuda_device):
     for args in bad:
         with pytest.raises(ValueError):
             price_scan.fused_price_scan(args["P"], A, args["c"], args["gamma"], 1.0)
+
+
+# An aligned chunk (rows of 16-byte multiples), an unaligned one (N * 4 not
+# a multiple of 16: the scan's masked tail) and a ragged one (the rows split
+# over a cluster, a partial last column tile): (m, n, pad) of
+# testing.synthetic_start, lowered 128x448, 30x91 and 300x1001.
+CHUNK_SHAPES = {"aligned": (120, 264, 64), "unaligned": (30, 61, 1),
+                "ragged": (300, 701, 1)}
+
+
+@pytest.mark.parametrize("kind", ["steepest", "stop_at_zero", "float64",
+                                  "bfloat16_scan", "dual"])
+@pytest.mark.parametrize("shape", sorted(CHUNK_SHAPES))
+def test_graphed_chunk_equals_eager_chunk(cuda_device, shape, kind):
+    """A chunk replayed from its CUDA graph (simplex/graphs.py) against the
+    eager chunk from the same state: every field bitwise equal, the same
+    scan launches counted, and a second replay from the first one's output
+    equal to the second eager chunk."""
+    from relp_tpu_torch.simplex import graphs, kernels
+    from relp_tpu_torch.testing import chunk_case, synthetic_start
+
+    m, n, pad = CHUNK_SHAPES[shape]
+    state, A, c1, _c2, mask = synthetic_start(m=m, n=n, pad=pad, dtype=np.float32,
+                                              seed=7, device=cuda_device)
+    name, args, kw = chunk_case(kind, state, A, c1, mask, chunk=40)
+    cache = graphs.ChunkGraphs()
+    eager_state = graphed_state = args[0]
+    for _ in range(2):
+        launches = price_scan.LAUNCHES
+        eager_state = getattr(kernels, name)(eager_state, *args[1:], **kw)
+        eager_launches = price_scan.LAUNCHES - launches
+        graphed_state = getattr(cache, name)(graphed_state, *args[1:], **kw)
+        torch.cuda.synchronize()
+        assert price_scan.LAUNCHES - launches == 2 * eager_launches
+        assert (eager_launches > 0) == (name == "run_chunk")
+        for field, g, e in zip(eager_state._fields, graphed_state, eager_state):
+            assert g.dtype == e.dtype and torch.equal(
+                g.reshape(-1).view(torch.uint8), e.reshape(-1).view(torch.uint8)), field
+    assert int(eager_state.iteration) > 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

@@ -1,0 +1,354 @@
+"""Captured chunks (``relp_tpu_torch.simplex.graphs``) on the CPU.
+
+A CUDA graph needs a card, so these tests put a recording stand-in in place
+of ``torch.cuda.CUDAGraph``: between ``capture_begin`` and ``capture_end``
+it records every aten op the chunk runs, with the tensors it reads and
+writes, and its ``replay`` runs them again in order on the same tensors,
+each result written into the tensor the capture made.  Like a CUDA graph
+it fixes every tensor's identity at capture and refuses what a capture
+refuses: a read of a tensor's value on the host and a tensor made from
+host data.  The tests hold:
+
+* the key apart for every static argument, input shape and dtype;
+* the inputs copied in and the outputs cloned out, so that a state the
+  caller keeps survives later replays, and a changed matrix is copied in;
+* the scan launches of a capture added by every replay, as eager chunks
+  count them;
+* a replayed chunk equal, bit for bit, to the eager chunk, primal and dual;
+* ``solve_general_form`` / ``solve_relaxation`` through ``DenseEngine``
+  with captured chunks giving the eager path's pivots, bases and exact
+  objectives on the CPU-sized cases of tests/test_torch_driver.py.
+
+The card's own graphs are held to eager chunks in tests/test_torch_cuda.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
+
+from relp_tpu_torch.config import SolverConfig
+from relp_tpu_torch.ops import price_scan
+from relp_tpu_torch.simplex import graphs, kernels, solve_general_form, solve_relaxation
+from relp_tpu_torch.simplex.state import SimplexState
+from relp_tpu_torch.testing import CHUNK_KINDS, chunk_case, synthetic_start
+from tests.test_torch_batch import one_torch_thread  # noqa: F401  (autouse)
+from tests.test_torch_driver import PORT, SCAN_BF16, SIMPLEX_SMALL
+
+# What a CUDA graph capture cannot hold: a host read of a value, a tensor
+# made from host data, an output whose size depends on the data.
+_REFUSED = {torch.ops.aten._local_scalar_dense.default, torch.ops.aten.lift_fresh.default,
+            torch.ops.aten.lift_fresh_copy.default, torch.ops.aten.nonzero.default}
+
+
+class _Recorder(TorchDispatchMode):
+    def __init__(self, ops):
+        super().__init__()
+        self.ops = ops
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in _REFUSED:
+            raise RuntimeError(f"{func} inside a capture")
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self.ops.append((func, args, kwargs, out))
+        return out
+
+
+class RecordingGraph:
+    """The stand-in for ``torch.cuda.CUDAGraph`` (module docstring)."""
+
+    def __init__(self):
+        self.ops = []
+        self._mode = None
+
+    def capture_begin(self, *args, **kwargs):
+        self._mode = _Recorder(self.ops)
+        self._mode.__enter__()
+
+    def capture_end(self):
+        self._mode.__exit__(None, None, None)
+
+    def replay(self):
+        for func, args, kwargs, out in self.ops:
+            again = func(*args, **kwargs)
+            for kept, new in zip(tree_leaves(out), tree_leaves(again)):
+                # A view or an in-place result shares the kept storage; a
+                # kept tensor may have been reshaped in place since (the
+                # vector-matrix product squeezes its mm's output).
+                if (isinstance(kept, torch.Tensor) and kept.untyped_storage().data_ptr()
+                        != new.untyped_storage().data_ptr()):
+                    kept.copy_(new.reshape(kept.shape))
+
+
+@pytest.fixture
+def recording(monkeypatch):
+    """The stand-in as the graph type, the CPU among the captured devices,
+    and the module's counters from zero."""
+    monkeypatch.setattr(graphs, "Graph", RecordingGraph)
+    monkeypatch.setattr(graphs, "DEVICE_TYPES", ("cuda", "cpu"))
+    for name, zero in (("CAPTURES", 0), ("REPLAYS", 0), ("CAPTURE_SECONDS", 0.0)):
+        monkeypatch.setattr(graphs, name, zero)
+
+
+@pytest.fixture
+def counting(monkeypatch):
+    """The scan counted on the CPU as the wrapper counts its launches on a
+    card (the plain version computes the result)."""
+    def scan(P, A, c, gamma, gamma_q):
+        price_scan.LAUNCHES += 1
+        price_scan.LAUNCHES_BY_DTYPE[str(A.dtype).replace("torch.", "")] += 1
+        return price_scan.fused_price_scan_reference(P, A, c, gamma, gamma_q)
+
+    monkeypatch.setattr(kernels, "fused_price_scan", scan)
+    monkeypatch.setattr(price_scan, "LAUNCHES", 0)
+    monkeypatch.setattr(price_scan, "LAUNCHES_BY_DTYPE",
+                        dict.fromkeys(price_scan.LAUNCHES_BY_DTYPE, 0))
+
+
+def _start(m=24, n=40, pad=8, dtype=np.float64, seed=3):
+    """(state, A, c1, c2, mask) of testing.synthetic_problem at its
+    artificial start (phase-1 costs), on the CPU."""
+    return synthetic_start(m=m, n=n, pad=pad, dtype=dtype, seed=seed)
+
+
+def _dual_start(state):
+    """The state with its basic values negated: the dual chunk pivots."""
+    return state._replace(xB=-state.xB)
+
+
+PRIMAL = dict(pricing=kernels.PRICE_STEEPEST, chunk=12, opt_tol=1e-9, pivot_tol=1e-9,
+              degen_tol=1e-9)
+DUAL = dict(chunk=12, opt_tol=1e-9, pivot_tol=1e-9, feas_tol=1e-9)
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1).view(torch.uint8) if x.dtype != torch.bool else x
+
+
+def _assert_bitwise(got: SimplexState, want: SimplexState):
+    for name, g, w in zip(SimplexState._fields, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(_bits(g), _bits(w)), name
+
+
+def test_key_separates_static_arguments_shapes_and_dtypes(recording):
+    state, A, c1, _c2, mask = _start()
+    cache = graphs.ChunkGraphs()
+
+    def captures(run, *args, **kw):
+        before = graphs.CAPTURES
+        run(*args, **kw)
+        return graphs.CAPTURES - before
+
+    primal = lambda st, A_scan, **kw: cache.run_chunk(  # noqa: E731
+        st, A_scan, A, c1, mask, **dict(PRIMAL, **kw))
+    assert captures(primal, state, A) == 1
+    assert captures(primal, state, A) == 0  # the same key again
+    for change in (dict(pricing=kernels.PRICE_DANTZIG), dict(chunk=5),
+                   dict(opt_tol=1e-8), dict(pivot_tol=1e-8), dict(degen_tol=1e-8),
+                   dict(stop_at_zero=True), dict(noisy_scan=True)):
+        assert captures(primal, state, A, **change) == 1, change
+    # A_scan a copy of A_full (not the same tensor), in the same and in a
+    # lower dtype.
+    assert captures(primal, state, A.clone()) == 1
+    assert captures(primal, state._replace(d=state.d.float()), A.float()) == 1
+    # Another shape, another working dtype.
+    st2, A2, c12, _c22, mask2 = _start(m=16, n=40)
+    assert captures(cache.run_chunk, st2, A2, A2, c12, mask2, **PRIMAL) == 1
+    st3, A3, c13, _c23, mask3 = _start(dtype=np.float32)
+    assert captures(cache.run_chunk, st3, A3, A3, c13, mask3, **PRIMAL) == 1
+    dual = lambda **kw: cache.dual_run_chunk(  # noqa: E731
+        _dual_start(state), A, A, c1, mask, **dict(DUAL, **kw))
+    assert captures(dual) == 1 and captures(dual) == 0
+    for change in (dict(chunk=5), dict(opt_tol=1e-8), dict(pivot_tol=1e-8),
+                   dict(feas_tol=1e-8), dict(noisy_scan=True)):
+        assert captures(dual, **change) == 1, change
+    assert graphs.REPLAYS == 20
+
+
+@pytest.mark.parametrize("stop_at_zero", [False, True])
+def test_replayed_primal_chunks_equal_eager_chunks(recording, stop_at_zero):
+    """Chunk after chunk from the phase-1 start (each replay from the last
+    one's output), the eager chunk's bits, also with the scans on a lower-
+    precision copy of the tableau."""
+    state, A, c1, _c2, mask = _start()
+    for A_scan, st in ((A, state), (A.float(), state._replace(d=state.d.float()))):
+        cache, graphed, eager = graphs.ChunkGraphs(), st, st
+        kw = dict(PRIMAL, stop_at_zero=stop_at_zero)
+        for _ in range(4):
+            graphed = cache.run_chunk(graphed, A_scan, A, c1, mask, **kw)
+            eager = kernels.run_chunk(eager, A_scan, A, c1, mask, **kw)
+            _assert_bitwise(graphed, eager)
+        assert int(eager.iteration) > 12
+
+
+def test_replayed_dual_chunks_equal_eager_chunks(recording):
+    state, A, c1, _c2, mask = _start()
+    cache, graphed = graphs.ChunkGraphs(), _dual_start(state)
+    eager = graphed
+    for _ in range(3):
+        graphed = cache.dual_run_chunk(graphed, A, A, c1, mask, **DUAL)
+        eager = kernels.dual_run_chunk(eager, A, A, c1, mask, **DUAL)
+        _assert_bitwise(graphed, eager)
+    assert int(eager.iteration) > 0
+
+
+@pytest.mark.parametrize("kind", CHUNK_KINDS)
+def test_each_kind_of_chunk_replays_the_eager_bits(recording, kind):
+    """The kinds of chunk that chip_smoke's chunk/graph line and the card's
+    tests compare (testing.chunk_case), from an f32 start."""
+    state, A, c1, _c2, mask = synthetic_start(m=20, n=36, pad=8, dtype=np.float32, seed=7)
+    name, args, kw = chunk_case(kind, state, A, c1, mask, chunk=15)
+    eager = getattr(kernels, name)(*args, **kw)
+    _assert_bitwise(getattr(graphs.ChunkGraphs(), name)(*args, **kw), eager)
+    assert int(eager.iteration) > 0
+
+
+def test_inputs_copied_in_and_outputs_cloned_out(recording):
+    """A kept output survives the next replay; each call computes from its
+    own state, c and mask (a tensor changed in place is copied in again)."""
+    state, A, c1, c2, mask = _start()
+    cache = graphs.ChunkGraphs()
+    first = cache.run_chunk(state, A, A, c1, mask, **PRIMAL)
+    kept = SimplexState(*(x.clone() for x in first))
+    second = cache.run_chunk(first, A, A, c1, mask, **PRIMAL)
+    _assert_bitwise(first, kept)
+    assert all(g.data_ptr() != f.data_ptr() for g, f in zip(second, first))
+    # From the same entry state again (the driver's rollback), and with the
+    # phase-2 costs: one graph, the inputs of each call.
+    again = cache.run_chunk(state, A, A, c1, mask, **PRIMAL)
+    _assert_bitwise(again, first)
+    for c in (c2, c1):
+        _assert_bitwise(cache.run_chunk(first, A, A, c, mask, **PRIMAL),
+                        kernels.run_chunk(first, A, A, c, mask, **PRIMAL))
+    c1.mul_(2.0)
+    _assert_bitwise(cache.run_chunk(first, A, A, c1, mask, **PRIMAL),
+                    kernels.run_chunk(first, A, A, c1, mask, **PRIMAL))
+    fewer = mask.clone()
+    fewer[: A.shape[1] // 2] = False
+    _assert_bitwise(cache.run_chunk(state, A, A, c1, fewer, **PRIMAL),
+                    kernels.run_chunk(state, A, A, c1, fewer, **PRIMAL))
+    assert graphs.CAPTURES == 1
+
+
+def test_replays_add_the_captured_scan_launches(recording, counting):
+    """Each replay adds what its capture counted: the eager chunk's count
+    (early_exit=False runs every iteration, as on a card); the warm-up's
+    and the capture's own counts are taken back."""
+    state, A, c1, _c2, mask = _start()
+    cache = graphs.ChunkGraphs()
+    for replays in (1, 2, 3):
+        cache.run_chunk(state, A, A, c1, mask, **PRIMAL)
+        assert price_scan.LAUNCHES == 12 * replays
+        assert price_scan.LAUNCHES_BY_DTYPE["float64"] == 12 * replays
+    cache.run_chunk(state._replace(d=state.d.float()), A.float(), A, c1, mask, **PRIMAL)
+    assert price_scan.LAUNCHES_BY_DTYPE == {"float32": 12, "float64": 36, "bfloat16": 0}
+    kernels.run_chunk(state, A, A, c1, mask, early_exit=False, **PRIMAL)
+    assert price_scan.LAUNCHES == 60
+    cache.run_chunk(state, A, A, c1, mask, **dict(PRIMAL, pricing=kernels.PRICE_DANTZIG))
+    assert price_scan.LAUNCHES == 60
+
+
+def test_a_capture_refuses_host_reads(recording):
+    """The stand-in refuses what a CUDA graph capture refuses: the eager
+    body's CPU-only early exit reads the status on the host."""
+    state, A, c1, _c2, mask = _start()
+    graph = RecordingGraph()
+    graph.capture_begin()
+    try:
+        with pytest.raises(RuntimeError, match="inside a capture"):
+            kernels.run_chunk(state, A, A, c1, mask, early_exit=True, **PRIMAL)
+        with pytest.raises(RuntimeError, match="inside a capture"):
+            torch.tensor(1e-9)
+    finally:
+        graph.capture_end()
+
+
+def _solve_summary(result):
+    return (result.status.value, result.stats.certified, result.exact_objective,
+            result.basis, result.stats.iterations, result.stats.phase1_iterations,
+            result.stats.dual_iterations, result.stats.chunks)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", SCAN_BF16])
+@pytest.mark.parametrize("name", sorted(SIMPLEX_SMALL))
+def test_solves_through_captured_chunks_match_eager(monkeypatch, name, dtype):
+    """solve_general_form with DenseEngine's chunks captured (the stand-in)
+    and eager: the same verdict, exact objective, basis, pivots and chunks."""
+    build, overrides = SIMPLEX_SMALL[name]
+    if dtype == SCAN_BF16:
+        overrides, dtype = dict(overrides, scan_dtype="bfloat16"), "float32"
+    cfg = SolverConfig(dtype=dtype, platform="cpu", **overrides)
+    eager, _solution = solve_general_form(build(PORT), cfg)
+    with monkeypatch.context() as patched:
+        patched.setattr(graphs, "Graph", RecordingGraph)
+        patched.setattr(graphs, "DEVICE_TYPES", ("cuda", "cpu"))
+        patched.setattr(graphs, "REPLAYS", 0)
+        captured, _solution = solve_general_form(build(PORT), cfg)
+        replays = graphs.REPLAYS
+    assert _solve_summary(captured) == _solve_summary(eager)
+    assert replays == captured.stats.chunks
+
+
+def test_warm_dual_restart_through_captured_chunks_matches_eager(monkeypatch):
+    """The dual restart of tests/test_torch_driver.py (a changed right-hand
+    side, warm-started from the old optimum) through captured dual chunks."""
+
+    def provider(b2):
+        gf = PORT.gf(PORT.O.MINIMIZE, [[1, 2], [3, 1]], [PORT.R.less(), PORT.R.less()],
+                     [4, b2], [-1, -1], [(0, None), (0, None)])
+        return gf.derive_matrix_data(gf.standardize())
+
+    cfg = SolverConfig(pad_to=8, platform="cpu")
+    basis = solve_relaxation(provider(6), cfg).basis
+    dual_pivots = 0
+    for b2 in (3, 1, 14):
+        eager = solve_relaxation(provider(b2), cfg, warm_start_basis=basis)
+        with monkeypatch.context() as patched:
+            patched.setattr(graphs, "Graph", RecordingGraph)
+            patched.setattr(graphs, "DEVICE_TYPES", ("cuda", "cpu"))
+            captured = solve_relaxation(provider(b2), cfg, warm_start_basis=basis)
+        assert _solve_summary(captured) == _solve_summary(eager)
+        dual_pivots += captured.stats.dual_iterations
+    assert dual_pivots > 0
+
+
+def test_the_engine_captures_only_on_a_captured_device_without_a_mesh(recording,
+                                                                     monkeypatch):
+    """DenseEngine keeps one cache for its life; a shard or a device outside
+    DEVICE_TYPES runs eagerly."""
+    from relp_tpu_torch.simplex.engine import DenseEngine
+
+    state = _start()[0]
+    engine = DenseEngine(torch.device("cpu"))
+    cache = engine._chunk_graphs(state)
+    assert isinstance(cache, graphs.ChunkGraphs) and engine._chunk_graphs(state) is cache
+    assert DenseEngine(torch.device("cpu"), shard=object())._chunk_graphs(state) is None
+    monkeypatch.setattr(graphs, "DEVICE_TYPES", ("cuda",))
+    assert DenseEngine(torch.device("cpu"))._chunk_graphs(state) is None
+
+
+def test_a_shared_cache_serves_the_solves_of_one_shape(monkeypatch):
+    """Inside graphs.shared(cache) every solve's engine takes that cache
+    (solve_batch's single-LP fallbacks): LPs of one shape capture each kind
+    of chunk once, and each solve gives its eager verdict, basis and pivots
+    (its own A, b and c copied in)."""
+    from relp_tpu_torch.testing import scenario_family
+
+    cfg = SolverConfig(platform="cpu", pad_to=8)
+    providers = scenario_family(12, 30, 7, 3)
+    eager = [solve_relaxation(p, cfg) for p in providers]
+    monkeypatch.setattr(graphs, "Graph", RecordingGraph)
+    monkeypatch.setattr(graphs, "DEVICE_TYPES", ("cuda", "cpu"))
+    monkeypatch.setattr(graphs, "CAPTURES", 0)
+    monkeypatch.setattr(graphs, "REPLAYS", 0)
+    cache = graphs.ChunkGraphs()
+    with graphs.shared(cache):
+        captured = [solve_relaxation(p, cfg) for p in providers]
+        assert graphs.cache() is cache
+    assert graphs.cache() is not cache
+    assert [_solve_summary(r) for r in captured] == [_solve_summary(r) for r in eager]
+    assert graphs.CAPTURES == len(cache._entries) < graphs.REPLAYS
+    assert graphs.REPLAYS == sum(r.stats.chunks for r in captured)

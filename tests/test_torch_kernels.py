@@ -267,6 +267,80 @@ def test_steepest_chunks_match_jax(name):
         assert int(js.iteration) >= MIN_PIVOTS
 
 
+def _port_state(js):
+    """The port's state from the JAX package's, whatever the dtype of d."""
+    fields = {k: np.asarray(getattr(js, k)) for k in jstate.SimplexState._fields}
+    fields["d"] = np.asarray(js.d.astype(jnp.float32))
+    return state_from_numpy(fields, "cpu")._replace(
+        d=torch.tensor(fields["d"]).to(getattr(torch, str(js.d.dtype))))
+
+
+@pytest.mark.parametrize("name", ["lp64x256", "knap6"])
+def test_bf16_scan_chunks_match_jax_pivot_for_pivot(name):
+    """The f64 carry with the scans on a bf16 copy of the tableau: both
+    phases, chunk by chunk, the same entering column q and leaving row r at
+    every pivot, the same chunk-entry d bit for bit, and each package's
+    ``run_chunk`` ending where its pivot-by-pivot walk ends.  Every chunk
+    starts from the JAX package's steepest-edge weights (recompute_gamma
+    in bf16): its jitted form squares W in f32 and sums in blocks of 32
+    rows, which its own eager form and the port round differently in the
+    last bit, and one such bit parts lp64x256's walks after 231 pivots."""
+    pair = Pair(name)
+    js, _ts = _init(pair)
+    A_j, A_t = pair.j["A"], pair.t["A"]
+    scan_j, scan_t = A_j.astype(jnp.bfloat16), A_t.to(torch.bfloat16)
+    mask_j, mask_t = pair.j["candidate_mask"], pair.t["candidate_mask"]
+    step_j = jax.jit(jk.make_iteration(jk.PRICE_STEEPEST, TOL, TOL, TOL))
+    step_t = tk.make_iteration(jk.PRICE_STEEPEST, TOL, TOL, TOL)
+    pivots = 0
+    for c, stop_at_zero in (("c_phase1", True), ("c_phase2", False)):
+        c_j, c_t = pair.j[c], pair.t[c]
+        kw = dict(chunk=CHUNK, **_chunk_kw(jk.PRICE_STEEPEST, stop_at_zero))
+        for _ in range(100):
+            if _done(js, stop_at_zero):
+                break
+            js = js._replace(gamma=jk.recompute_gamma(js.Binv, scan_j, js.in_basis))
+            ts = _port_state(js)
+            end_j = jk.run_chunk(js, scan_j, A_j, c_j, mask_j, **kw)
+            end_t = tk.run_chunk(ts, scan_t, A_t, c_t, mask_t, **kw)
+            js = js._replace(inner=jnp.zeros((), jnp.int32),
+                             d=c_j.astype(jnp.bfloat16) - js.pi.astype(jnp.bfloat16) @ scan_j)
+            ts = ts._replace(inner=torch.zeros((), dtype=torch.int32),
+                             d=c_t.to(torch.bfloat16)
+                             - torch.matmul(ts.pi.to(torch.bfloat16), scan_t))
+            np.testing.assert_array_equal(ts.d.float().numpy(),
+                                          np.asarray(js.d.astype(jnp.float32)))
+            for _ in range(CHUNK):
+                if _done(js, stop_at_zero):
+                    break
+                entry = np.asarray(js.basis)
+                js = step_j(js, scan_j, A_j, c_j, c_j.astype(jnp.bfloat16), mask_j)
+                ts = step_t(ts, scan_t, A_t, c_t, c_t.to(torch.bfloat16), mask_t)
+                (r_j, q_j), (r_t, q_t) = (
+                    (np.flatnonzero(basis != entry).tolist(), basis[basis != entry].tolist())
+                    for basis in (np.asarray(js.basis), ts.basis.numpy()))
+                assert (q_t, r_t) == (q_j, r_j), f"the walks part at pivot {pivots}"
+                assert int(js.status) == int(ts.status)
+                pivots = int(js.iteration)
+            for end, walk in ((end_t, ts), (end_j, js)):
+                assert np.array_equal(np.asarray(end.basis), np.asarray(walk.basis))
+                assert int(end.iteration) == int(walk.iteration)
+        assert _done(js, stop_at_zero)
+        if c == "c_phase2":
+            break
+        engine, cfg = JaxEngine(), JaxConfig(dtype="float64", pad_to=8)
+        args = (A_j, pair.j["b"], pair.j["c_phase1"], cfg, JaxSolveStats())
+        js, _ = engine.refactor(js, *args)
+        js, _ = _drive_out_artificials(engine, js, pair.problem_j, *args)
+        js, _ = engine.refactor(js, A_j, pair.j["b"], pair.j["c_phase2"], cfg,
+                                JaxSolveStats())
+        js = js._replace(status=jnp.asarray(jstate.RUNNING, jnp.int32))
+    assert int(js.status) == jstate.OPTIMAL
+    np.testing.assert_allclose(float(ts.obj), float(js.obj), rtol=1e-12)
+    if name == "lp64x256":
+        assert pivots >= 2 * MIN_PIVOTS
+
+
 @pytest.mark.parametrize(
     "pricing",
     [jk.PRICE_DANTZIG, jk.PRICE_BLAND, jk.PRICE_FIRST, jk.PRICE_FIRST_MEMORY],
