@@ -64,9 +64,12 @@ Takes no arguments and needs no network.  Phases, one line each (or more):
                    device kernels and host launches a pivot);
   8b. chunk/graph  from one state, an eager and a graphed chunk of each
                    kind (primal steepest edge, with stop_at_zero, in f64,
-                   with a bf16 scan tableau, dual) at 1024 x 4096 and at
-                   128 x 384: every output bitwise equal, the capture's
-                   seconds, a replay's and the eager chunk's ms;
+                   with a bf16 scan tableau, dual; the LU chunk from an
+                   empty ring and from 7 etas, with stop_at_zero and with
+                   Dantzig pricing; the df32 chunk; the PDHG chunk) at
+                   1024 x 4096 and at 128 x 384: every output bitwise
+                   equal, the capture's seconds, a replay's and the eager
+                   chunk's ms;
   9. batch/resident, batch/blocked
                    solve_batch (default config) on the two scenario
                    families of relp_tpu_torch.testing (256 x 128x384 and
@@ -125,21 +128,30 @@ graphs=captures/replays/capture seconds of the path):
                    statistics, crossover pivots (a cold finish: the
                    crossover basis is refused), wall split;
  17. first_order/pdhg
-                   pdhg_solve on a 2048 x 8192 LP (f32 A of 67 MB):
-                   iterations/s, the device time per iteration of one chunk
-                   against two reads of A, the KKT residuals of the
-                   returned point in f64 on the host against the card's,
-                   and its primal residual against the same call's in f64
-                   on the CPU (relp_tpu_torch.tools.pdhg_check);
- 18. lu/real, lu/profile
-                   main/real's LP on the LU engine: certified, the pinned
-                   digest, ms per pivot; one chunk of it replayed under the
-                   profiler for launches and device-busy time per pivot.
- 19. df32/real, df32/profile, df32/kernel
+                   pdhg_solve on a 2048 x 8192 LP (f32 A of 67 MB), its
+                   chunks replayed from a CUDA graph, then eager: the same
+                   point bit for bit; iterations/s and ms an iteration of
+                   both, the device time per iteration of one chunk,
+                   replayed and eager, against two reads of A, the KKT
+                   residuals of the returned point in f64 on the host
+                   against the card's, and its primal residual against the
+                   same call's in f64 on the CPU
+                   (relp_tpu_torch.tools.pdhg_check);
+ 18. lu/real, lu/profile, lu/real/eager
+                   main/real's LP on the LU engine, its chunks replayed from
+                   CUDA graphs (captures by the ring's fill at entry):
+                   certified, the pinned digest, ms per pivot; one chunk of
+                   it replayed under the profiler for device kernels, host
+                   launches and device-busy time per pivot; then the same
+                   solve with eager chunks up to its 20th chunk, which it
+                   must enter with the graphed run's state, bit for bit.
+ 19. df32/real, df32/profile, df32/real/eager, df32/kernel
                    main/real's LP with the double-float carry
-                   (carry="df32"): certified by that rung, the pinned
-                   digest, scan launches, ms per pivot, the certification
-                   share; one chunk replayed under the profiler; then the
+                   (carry="df32"), its chunks replayed from CUDA graphs:
+                   certified by that rung, the pinned digest, scan
+                   launches, ms per pivot, the certification share; one
+                   chunk replayed under the profiler; the eager prefix as
+                   for lu/real; then the
                    scan kernel against its plain version on this path's
                    inputs, and df_matvec/df_vecmat on the card against the
                    CPU on the same f32 inputs, bitwise, at M = 1920.
@@ -886,10 +898,10 @@ def phase_chunk_loop(torch, np, device, times):
     _check(per_pivot["graph"][3] == per_pivot["kernel"][3],
            f"chunk: the graph path took {per_pivot['graph'][3]} pivots, the "
            f"kernel path {per_pivot['kernel'][3]}")
+    run(60, graph=True)  # captures the 60-pivot chunk: the profile reads a replay
     for path in ("kernel", "graph"):
-        busy_ms, launches, top = _device_busy(
+        busy_ms, launches, top, host = _device_busy(
             torch, lambda: run(60, graph=path == "graph"), 60)
-        host = _host_launches(torch, lambda: run(60, graph=path == "graph"))
         # The profiler's kernel durations can sum above the unprofiled
         # wall time (it traces every node of a graph): no idle share then.
         busy_over_wall = busy_ms / per_pivot[path][0]
@@ -907,32 +919,18 @@ def phase_chunk_loop(torch, np, device, times):
         )
 
 
-def _host_launches(torch, fn):
-    """{CUDA runtime or driver call: count} of the work ``fn`` hands the
-    card (kernel and graph launches, copies, sets), read from the
-    profiler's raw host events."""
-    from collections import Counter
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    starts = ("cudaLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset", "cuLaunch",
-              "cuGraphLaunch", "cuMemcpy", "cuMemset")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-    return Counter(e.name() for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CPU and e.name().startswith(starts))
-
-
 def phase_chunk_graph(torch, np, device):
     """From one state, one eager and one graphed chunk of each kind of
     testing.chunk_case (primal steepest edge, with stop_at_zero, in f64,
     with a bf16 scan tableau, dual) at the bench problem's 1024 x 4096 and
-    at the node-LP shape 128 x 384: whether every output is bitwise equal,
-    the pivots, the capture's seconds (warm-up included), a replay's ms
-    and the eager chunk's ms (host clock, a sync at the end of each)."""
+    at the node-LP shape 128 x 384, and of each kind of testing.body_case
+    (the LU chunk from an empty ring and from 7 etas, with stop_at_zero and
+    Dantzig pricing; the df32 chunk; the PDHG chunk on pdhg_lp at the same
+    m x n): whether every output is bitwise equal, the pivots, the
+    capture's seconds (warm-up included), a replay's ms and the eager
+    chunk's ms (host clock, a sync at the end of each)."""
     from relp_tpu_torch.simplex import graphs, kernels
-    from relp_tpu_torch.testing import CHUNK_KINDS, chunk_case, synthetic_start
+    from relp_tpu_torch.testing import BODY_KINDS, CHUNK_KINDS, chunk_case, synthetic_start
 
     differ = []
     for m, n in ((1024, 4096), (128, 256)):
@@ -965,32 +963,78 @@ def phase_chunk_graph(torch, np, device):
                   bitwise_equal=not fields, differing_fields=",".join(fields) or "none",
                   capture_s=f"{capture_s:.3f}", replay_ms=f"{replay_ms:.3f}",
                   eager_ms=f"{eager_ms:.3f}", **_CARD)
+        for kind in BODY_KINDS:
+            differ += _hold_graphed_body(torch, device, kind, m, n)
     return differ
 
 
+def _hold_graphed_body(torch, device, kind, m, n):
+    """chunk/graph's line for one kind of testing.body_case (the LU, df32
+    and PDHG chunks) at (m, n): an eager and a graphed chunk from one
+    state, then a replay; returns ["kind@shape:fields"] if any differ."""
+    from relp_tpu_torch.simplex import graphs
+    from relp_tpu_torch.testing import body_case
+
+    start, eager_fn, graphed_fn = body_case(kind, m, n, pad=128, seed=7, device=device)
+    cache = graphs.ChunkGraphs()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    eager, eager_ms = timed(lambda: eager_fn(start))
+    capture_s = graphs.CAPTURE_SECONDS
+    graphed, _first_ms = timed(lambda: graphed_fn(cache, start))
+    capture_s = graphs.CAPTURE_SECONDS - capture_s
+    again, replay_ms = timed(lambda: graphed_fn(cache, start))
+    fields = [f for f, g, e, a in zip(eager._fields, graphed, eager, again)
+              if not (torch.equal(g.reshape(-1).view(torch.uint8),
+                                  e.reshape(-1).view(torch.uint8))
+                      and torch.equal(a.reshape(-1).view(torch.uint8),
+                                      e.reshape(-1).view(torch.uint8)))]
+    rows, cols = (start.y, start.x) if kind == "pdhg" else (start.xB, start.in_basis)
+    steps = (dict(iterations=60) if kind == "pdhg" else
+             dict(pivots=int(eager.iteration) - int(start.iteration)))
+    extra = dict(eta0=int(start.eta_count)) if kind.startswith("lu_") else {}
+    _line("chunk/graph", shape=f"{rows.shape[0]}x{cols.shape[0]}", kind=kind, **steps,
+          **extra, bitwise_equal=not fields, differing_fields=",".join(fields) or "none",
+          capture_s=f"{capture_s:.3f}", replay_ms=f"{replay_ms:.3f}",
+          eager_ms=f"{eager_ms:.3f}", **_CARD)
+    return [f"{kind}@{m}x{n}:{','.join(fields)}"] if fields else []
+
+
 def _device_busy(torch, fn, pivots: int):
-    """torch.profiler (CUDA activity only) over ``fn``: device milliseconds
-    per pivot summed over the device's events (kernels, copies, sets),
-    their count (the launches), and the five costliest kernels by name.
-    The raw Kineto events are read: building the profiler's Python events
-    (``key_averages``) for a chunk of 60,000 launches takes longer than
-    the chunk itself."""
-    from collections import defaultdict
+    """torch.profiler over ``fn``: device milliseconds per pivot summed over
+    the device's events (kernels, copies, sets), their count (the device
+    kernels), the five costliest kernels by name, and {CUDA runtime or
+    driver call: count} of the work the host handed the card (kernel and
+    graph launches, copies, sets).  The raw Kineto events are read:
+    building the profiler's Python events (``key_averages``) for a chunk of
+    60,000 launches takes longer than the chunk itself."""
+    from collections import Counter, defaultdict
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    starts = ("cudaLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset", "cuLaunch",
+              "cuGraphLaunch", "cuMemcpy", "cuMemset")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
     by_name = defaultdict(float)
     launches = 0
+    host = Counter()
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
             by_name[e.name()] += e.duration_ns() / 1e6
             launches += 1
+        elif e.name().startswith(starts):
+            host[e.name()] += 1
     busy_ms = sum(by_name.values()) / pivots
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:5]
-    return busy_ms, launches, [(name[:40], ms / pivots) for name, ms in top]
+    return busy_ms, launches, [(name[:40], ms / pivots) for name, ms in top], host
 
 
 _SHAPES = {}
@@ -1648,15 +1692,27 @@ def _counting_solves(tally):
 def _keeping_inputs(module, name, kept, when=lambda *args: True):
     """``_wrapped``: the inputs of the first call of ``module.name`` for
     which ``when(*args)`` holds are kept in ``kept[name]`` as (args, kwargs),
-    contiguous tensors cloned (a tableau expanded over a batch is read-only
-    and kept as it is)."""
+    contiguous tensors cloned, also inside named tuples (a state, a df
+    pair), with one clone for what is one tensor (a captured chunk's key
+    tells A_scan that is A_full apart); a tableau expanded over a batch is
+    read-only and kept as it is."""
     import torch
 
     def wrapper(fn):
         def run(*args, **kwargs):
             if name not in kept and when(*args):
-                kept[name] = (tuple(a.clone() if torch.is_tensor(a) and a.is_contiguous()
-                                    else a for a in args), dict(kwargs))
+                clones = {}
+
+                def keep(a):
+                    if torch.is_tensor(a) and a.is_contiguous():
+                        if id(a) not in clones:
+                            clones[id(a)] = a.clone()
+                        return clones[id(a)]
+                    if isinstance(a, tuple) and hasattr(a, "_fields"):
+                        return type(a)(*(keep(x) for x in a))
+                    return a
+
+                kept[name] = (tuple(keep(a) for a in args), dict(kwargs))
             return fn(*args, **kwargs)
         return run
 
@@ -1974,20 +2030,39 @@ _PDHG_PROGRESS_FACTOR = 10.0
 
 def phase_first_order_pdhg(torch, np, device):
     """pdhg_solve alone on the 2048 x 8192 LP of relp_tpu_torch.testing (f32,
-    its matrix larger than L2; tools.pdhg_check's call): iterations/s and
-    the device time of one 200-iteration chunk against its bound (A read
+    its matrix larger than L2; tools.pdhg_check's call), its chunks replayed
+    from a CUDA graph, then again eager: the same point bit for bit;
+    iterations/s and ms an iteration of both, and the device time of one
+    200-iteration chunk, replayed and eager, against its bound (A read
     twice per iteration at 3.35 TB/s); the KKT residuals of the returned
     point in f64 on the host against the port's f32 evaluation on the card,
     and its primal residual against the same call's in f64 on the CPU."""
     from relp_tpu_torch.firstorder import pdhg
+    from relp_tpu_torch.simplex import graphs
     from relp_tpu_torch.testing import PDHG_F64_CPU
     from relp_tpu_torch.tools import pdhg_check
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    x, y, st, scaled, host = pdhg_check.run(device)
-    wall = time.perf_counter() - t0
+    runs = {}
+    for path in ("graph", "eager"):
+        keep = graphs.DEVICE_TYPES
+        if path == "eager":
+            graphs.DEVICE_TYPES = ()
+        replays = graphs.REPLAYS
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[path] = (*pdhg_check.run(device), time.perf_counter() - t0,
+                          graphs.REPLAYS - replays)
+        finally:
+            graphs.DEVICE_TYPES = keep
+    x, y, st, scaled, host, wall, replays = runs["graph"]
+    xe, ye, ste, _scaled, _host, wall_eager, replays_eager = runs["eager"]
     _check(np.all(np.isfinite(x)) and np.all(np.isfinite(y)), "first_order/pdhg: non-finite")
+    _check(replays == st.iterations // 200 and replays_eager == 0,
+           f"first_order/pdhg: {replays} replays graphed, {replays_eager} eager")
+    _check(np.array_equal(x, xe) and np.array_equal(y, ye)
+           and (st.iterations, st.restarts) == (ste.iterations, ste.restarts),
+           "first_order/pdhg: the graphed point differs from the eager one")
     As, bs, cs, us, xs, ys = scaled
     on_card = [torch.as_tensor(v, device=device) for v in (As, bs, cs, us)]
     xs_d, ys_d = (torch.as_tensor(v.astype(np.float32), device=device) for v in (xs, ys))
@@ -2022,18 +2097,27 @@ def phase_first_order_pdhg(torch, np, device):
            f"first_order/pdhg: {st.iterations} iterations, primal residual "
            f"{host[0]:.3e} above {progress:.3e} ({_PDHG_PROGRESS_FACTOR:g} times "
            "the f64 CPU run's)")
-    # One chunk on the card between CUDA events, from the returned point.
+    # One chunk on the card between CUDA events, from the returned point:
+    # replayed from its graph (the copies in and out included) and eager.
     A_d, b_d, c_d, u_d = on_card
     chunk = 200
-    ms = _events_ms(torch, lambda: pdhg._pdhg_chunk(
-        xs_d, ys_d, xs_d, ys_d, 0.0, 1e-3, 1e-3, A_d, b_d, c_d, u_d, chunk=chunk))
+    carry = pdhg.pdhg_carry(xs_d, ys_d, xs_d, ys_d, 0.0, 1e-3, 1e-3)
+    inputs = dict(A=A_d, b=b_d, c=c_d, u=u_d)
+    cache = graphs.ChunkGraphs()
+    ms = _events_ms(torch, lambda: cache.run(pdhg._pdhg_chunk, carry, inputs, chunk=chunk))
+    eager_ms = _events_ms(torch, lambda: pdhg._pdhg_chunk(carry, **inputs, chunk=chunk))
     bytes_per_iter = 2 * A_d.numel() * 4
     bound_ms, bound_by = _bound(bytes_per_iter, 4.0 * A_d.numel())
     _line(
         "first_order/pdhg", m=As.shape[0], n=As.shape[1], dtype="float32",
         iterations=st.iterations, restarts=st.restarts, converged=st.converged,
         wall_s=f"{wall:.3f}", iterations_per_s=f"{st.iterations / st.wall_time_s:.0f}",
+        solve_ms_per_iteration=f"{st.wall_time_s / st.iterations * 1e3:.5f}",
+        eager_wall_s=f"{wall_eager:.3f}",
+        eager_solve_ms_per_iteration=f"{ste.wall_time_s / ste.iterations * 1e3:.5f}",
+        graphed_point_bitwise_eager=True, replays=replays,
         chunk_ms_per_iteration=f"{ms / chunk:.5f}",
+        eager_chunk_ms_per_iteration=f"{eager_ms / chunk:.5f}",
         bound_ms_per_iteration=f"{bound_ms:.5f}", bound_by=bound_by,
         bound_share=f"{bound_ms / (ms / chunk):.3f}",
         bytes_per_iteration=bytes_per_iter,
@@ -2062,7 +2146,10 @@ def phase_lu_real(torch, found):
         generated_lp,
     )
 
+    from relp_tpu_torch.simplex import lu as lu_mod
+
     kept, calls = {}, []
+    graphs0 = _graph_counts()
     with _keeping_profiled_chunk(engine.LUEngine, kept, calls):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2070,12 +2157,17 @@ def phase_lu_real(torch, found):
                                               SolverConfig(basis_inverse="lu"))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    graph_counts = {k: v - graphs0[k] for k, v in _graph_counts().items()}
     _check(result.status is SolveStatus.FINITE_OPTIMUM and result.stats.certified,
            f"lu/real: {result.status} certified={result.stats.certified}")
     digest = hashlib.sha256(str(solution.objective_value).encode()).hexdigest()
     _check(digest == REAL_SIZE_OBJECTIVE_SHA256, f"lu/real digest {digest}")
+    _check(graph_counts["replays"] == result.stats.chunks,
+           f"lu/real: {graph_counts['replays']} replays for {result.stats.chunks} chunks")
     pivots = result.stats.iterations  # both phases' pivots
     solve_s = result.stats.wall_time_s - result.stats.certify_time_s
+    lu_engine = kept["run_chunk"][0][0]
+    by_eta0 = lu_engine._graphs.captured(lu_mod.lu_run_chunk, "eta0")
     replay = _Replay(torch, "lu/real", kept, calls)
     _line(
         "lu/real", m=REAL_SIZE["m"], n=REAL_SIZE["n"], status=result.status.value,
@@ -2086,11 +2178,14 @@ def phase_lu_real(torch, found):
         wall_s=f"{wall:.3f}", solve_s=f"{solve_s:.3f}",
         certify_s=f"{result.stats.certify_time_s:.3f}",
         solve_ms_per_pivot=f"{solve_s / pivots * 1e3:.4f}",
+        graphs=_graph_fields(graph_counts),
+        captures_by_eta0=";".join(f"{k}:{n}" for k, n in sorted(by_eta0.items())),
+        lu_solve_backend=str(torch.backends.cuda.preferred_linalg_library()),
     )
     state = kept["run_chunk"][0][1]
     found.update(result=result, solve_ms_per_pivot=solve_s / pivots * 1e3, replay=replay,
                  state=state, prefix_s=calls[_PROFILED_CHUNK - 1] - t0)
-    _line("lu/profile", chunk=_PROFILED_CHUNK, **replay.fields())
+    _line("lu/profile", chunk=_PROFILED_CHUNK, path="graph", **replay.fields())
 
 # The chunk of lu/real, df32/real and mesh/lu replayed under the profiler.
 _PROFILED_CHUNK = 20
@@ -2133,13 +2228,15 @@ def _stopping_at_profiled_chunk(engine_cls, kept, calls):
 
 
 class _Replay:
-    """A kept chunk replayed (its solve has just warmed the allocator): its
-    pivots, collectives and host ms per pivot in a first run, device-busy
-    ms, kernel launches and the costliest kernels per pivot in a second
-    under the profiler."""
+    """A kept chunk run again (its solve has just warmed the allocator and,
+    for a graphed engine, captured its graph): its pivots, collectives and
+    host ms per pivot in a first run; device-busy ms, device kernels, host
+    launches and the costliest kernels per pivot in a second under the
+    profiler."""
 
     def __init__(self, torch, label, kept, calls):
         from relp_tpu_torch.parallel import sharded
+        from relp_tpu_torch.simplex import graphs
 
         _check("run_chunk" in kept,
                f"{label}: {len(calls)} chunks, fewer than {_PROFILED_CHUNK}")
@@ -2149,7 +2246,7 @@ class _Replay:
             # The class's own run_chunk: the keeping wrapper is gone by now.
             return int(type(engine).run_chunk(engine, state, *args, **kwargs).iteration)
 
-        before = sharded.COLLECTIVES
+        before, captures = sharded.COLLECTIVES, graphs.CAPTURES
         torch.cuda.synchronize()
         t = time.perf_counter()
         self.pivots = run() - int(state.iteration)  # the host read ends the timing
@@ -2157,8 +2254,11 @@ class _Replay:
         self.collectives = sharded.COLLECTIVES - before
         _check(self.pivots > 0, f"{label}: the replayed chunk took no pivot")
         self.ms_per_pivot = elapsed * 1e3 / self.pivots
-        self.busy_ms, launches, self.top = _device_busy(torch, run, self.pivots)
+        self.busy_ms, launches, self.top, host = _device_busy(torch, run, self.pivots)
         self.launches_per_pivot = launches / self.pivots
+        self.host_launches_per_pivot = sum(host.values()) / self.pivots
+        # A graphed engine replays the graph its solve captured for this chunk.
+        _check(graphs.CAPTURES == captures, f"{label}: the replayed chunk was captured again")
 
     def fields(self):
         idle = 1.0 - self.busy_ms / self.ms_per_pivot if self.busy_ms else None
@@ -2169,9 +2269,50 @@ class _Replay:
                                       else "not measured"),
             device_idle_share=f"{idle:.3f}" if idle is not None else "not measured",
             kernel_launches_per_pivot=f"{self.launches_per_pivot:.1f}",
+            host_launches_per_pivot=f"{self.host_launches_per_pivot:.3f}",
             top_kernels=";".join(f"{name}:{ms:.4f}ms" for name, ms in self.top),
         )
 
+
+
+def phase_eager_prefix(torch, label, engine_cls, config, graphed):
+    """``label`` (lu/real or df32/real) again with every chunk eager
+    (graphs.DEVICE_TYPES emptied for the phase), cut at the entry of its
+    _PROFILED_CHUNK-th chunk: its state there must be the graphed run's,
+    bit for bit (``graphed``: what the graphed phase left); its ms a pivot
+    to there beside the graphed run's (both from the call, preparation
+    included); then that chunk run eagerly under the profiler, as the
+    graphed phase's profile line runs its replay."""
+    from relp_tpu_torch.simplex import graphs, solve_general_form
+    from relp_tpu_torch.testing import REAL_SIZE, generated_lp
+
+    kept, calls = {}, []
+    keep = graphs.DEVICE_TYPES
+    graphs.DEVICE_TYPES = ()
+    try:
+        with _stopping_at_profiled_chunk(engine_cls, kept, calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve_general_form(generated_lp(**REAL_SIZE), config)
+        replay = _Replay(torch, f"{label}/eager", kept, calls)
+    finally:
+        graphs.DEVICE_TYPES = keep
+    state, want = kept["run_chunk"][0][1], graphed["state"]
+    differ = [name for name, a, b in zip(want._fields, state, want)
+              if not (a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
+                                                         b.reshape(-1).view(torch.uint8)))]
+    _check(not differ, f"{label}/eager: the state entering chunk {_PROFILED_CHUNK} "
+                       f"differs from the graphed run's in {differ}")
+    pivots = int(state.iteration)
+    prefix_s = calls[_PROFILED_CHUNK - 1] - t0
+    _line(f"{label}/eager", prefix_chunks=_PROFILED_CHUNK - 1, pivots=pivots,
+          bitwise_equal=True, differing_fields="none",
+          eager_prefix_ms_per_pivot=f"{prefix_s / pivots * 1e3:.4f}",
+          graphed_prefix_ms_per_pivot=f"{graphed['prefix_s'] / pivots * 1e3:.4f}",
+          eager_prefix_s=f"{prefix_s:.3f}", graphed_prefix_s=f"{graphed['prefix_s']:.3f}",
+          **_CARD)
+    _line(f"{label.split('/')[0]}/profile", chunk=_PROFILED_CHUNK, path="eager",
+          **replay.fields())
 
 
 def _hold_df_bitwise(torch, np, label, state, A):
@@ -2200,12 +2341,15 @@ def _hold_df_bitwise(torch, np, label, state, A):
               max_abs=f"{float(np.abs(on_host[0].numpy()).max()):.3e}")
 
 
-def phase_df32_real(torch, np):
+def phase_df32_real(torch, np, found):
     """main/real's LP through solve_general_form with the double-float
     carry (carry="df32"): certified by that rung (no escalation), main/
     real's pinned digest; pivots, chunk exits, scan launches, ms per pivot
-    of the solve, the certification share; one chunk of it replayed under
-    the profiler for launches and device-busy time per pivot.  Returns the
+    of the solve, the certification share, the captured chunks'
+    captures/replays/seconds; one chunk of it replayed under the profiler
+    for launches and device-busy time per pivot.  Leaves its state at the
+    entry of its _PROFILED_CHUNK-th chunk and the seconds to it in
+    ``found`` for df32/real/eager.  Returns the
     checks that launch kernels (run once the path's launches are read):
     the scan kernel against its plain version on the inputs this path gave
     it, and df_matvec/df_vecmat on the card against the CPU, bitwise, at
@@ -2220,6 +2364,7 @@ def phase_df32_real(torch, np):
     )
 
     kept, calls = {}, []
+    graphs0 = _graph_counts()
     with _keeping_profiled_chunk(engine.DoubleFloatEngine, kept, calls), \
             _keeping_inputs(df_kernels, "fused_price_scan", kept):
         torch.cuda.synchronize()
@@ -2228,7 +2373,10 @@ def phase_df32_real(torch, np):
                                               SolverConfig(carry="df32"))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    graph_counts = {k: v - graphs0[k] for k, v in _graph_counts().items()}
     scan_launches = price_scan.LAUNCHES
+    _check(graph_counts["replays"] == result.stats.chunks,
+           f"df32/real: {graph_counts['replays']} replays for {result.stats.chunks} chunks")
     _check(result.status is SolveStatus.FINITE_OPTIMUM and result.stats.certified,
            f"df32/real: {result.status} certified={result.stats.certified}")
     _check(not result.stats.escalations,
@@ -2249,9 +2397,11 @@ def phase_df32_real(torch, np):
         certify_s=f"{result.stats.certify_time_s:.3f}",
         certify_share=f"{result.stats.certify_time_s / wall:.3f}",
         solve_ms_per_pivot=f"{solve_s / pivots * 1e3:.4f}",
+        graphs=_graph_fields(graph_counts),
     )
-    _line("df32/profile", chunk=_PROFILED_CHUNK, **replay.fields())
+    _line("df32/profile", chunk=_PROFILED_CHUNK, path="graph", **replay.fields())
     (_engine, state, _A_scan, A_full, *_rest), _kw = kept["run_chunk"]
+    found.update(state=state, prefix_s=calls[_PROFILED_CHUNK - 1] - t0)
 
     def holds():
         out = _replay_scan(torch, "df32/kernel", kept["fused_price_scan"][0])
@@ -2527,7 +2677,8 @@ def phase_mesh_world1(torch, np, device, main_result, window, lu):
         sharded.COLLECTIVES = 0
         _t, chunk_pivots = runs["sharded"](60)
         per_chunk = sharded.COLLECTIVES
-        busy_ms, launches, _top = _device_busy(torch, lambda: runs["sharded"](60), chunk_pivots)
+        busy_ms, launches, _top, _host = _device_busy(
+            torch, lambda: runs["sharded"](60), chunk_pivots)
         idle = 1.0 - busy_ms / per_pivot["sharded"][0] if busy_ms else None
         # The two collectives of a pivot alone: 200 calls each at the
         # chunk's sizes (the entering choice; the column with c_q and c_B).
@@ -2575,7 +2726,10 @@ def phase_other_modes(torch, np, device, knap6_pivots, main_result):
     the scan's on main/bf16, mip/real64, df32/real and mesh/world1.
     Returns ({path: launches by kernel}, {kernel: mip/real's error},
     {path: (the scan's error, its times)})."""
-    by_path, replays, window, lu = {}, {}, {}, {}
+    from relp_tpu_torch.config import SolverConfig
+    from relp_tpu_torch.simplex import engine
+
+    by_path, replays, window, lu, df32 = {}, {}, {}, {}, {}
     for path, run in (
         ("main/bf16", lambda: phase_main_real(
             torch, np, "main/bf16", "bfloat16", main_result,
@@ -2586,7 +2740,11 @@ def phase_other_modes(torch, np, device, knap6_pivots, main_result):
         ("first_order/real", lambda: phase_first_order_real(torch)),
         ("first_order/pdhg", lambda: phase_first_order_pdhg(torch, np, device)),
         ("lu/real", lambda: phase_lu_real(torch, lu)),
-        ("df32/real", lambda: phase_df32_real(torch, np)),
+        ("lu/real/eager", lambda: phase_eager_prefix(
+            torch, "lu/real", engine.LUEngine, SolverConfig(basis_inverse="lu"), lu)),
+        ("df32/real", lambda: phase_df32_real(torch, np, df32)),
+        ("df32/real/eager", lambda: phase_eager_prefix(
+            torch, "df32/real", engine.DoubleFloatEngine, SolverConfig(carry="df32"), df32)),
         ("mesh/world1", lambda: phase_mesh_world1(torch, np, device, main_result,
                                                   window, lu)),
     ):

@@ -13,10 +13,14 @@ Differences from the JAX code, and why:
 * ``pdhg_solve`` takes its torch ``device``: ``None`` means CUDA (and
   raises without a card, like every entry point of the port); ``"cpu"``
   must be asked for.  ``solve_first_order`` passes ``torch_device(cfg)``.
-* A chunk is an eager loop of torch ops.  The Halpern weights
-  ``(k0+i+1)/(k0+i+2)`` of a chunk are formed on the host in f64 and cast
-  to the iterate dtype once per chunk, as the JAX chunk forms each in its
-  default float type and casts it to ``A.dtype``.
+* A chunk is a loop of torch ops; on a card, with no mesh, it is captured
+  once as a CUDA graph and replayed (``simplex/graphs.py``), on the CPU and
+  under a mesh it runs eagerly.  Its carry (``PdhgCarry``) holds the
+  Halpern counter ``k0`` and the step sizes as 0-d device tensors, as the
+  JAX chunk traces them as arrays, so one graph serves every chunk and
+  restart.  The Halpern weights ``(k0+i+1)/(k0+i+2)`` are divided in f64
+  on the device from exact integers and cast to ``A.dtype``, as the JAX
+  chunk forms each in its default float type and casts it.
 * ``mesh`` shards A in 2-D, rows over "batch" and columns over "col",
   zero-padded to equal shards as in the JAX package; the reductions that
   GSPMD inserts there are written out (``_Grid``): ``A x`` is summed over
@@ -35,12 +39,13 @@ from __future__ import annotations
 import dataclasses
 import time
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from relp_tpu_torch.config import SolverConfig, default_config, torch_device
+from relp_tpu_torch.simplex import graphs
 
 
 @dataclass
@@ -195,17 +200,48 @@ def _kkt(A, b, c, u, x, y, ops=_LOCAL) -> Tuple[float, float, float]:
     return pr, du, gap
 
 
-def _pdhg_chunk(x, y, ax, ay, k0: float, tau: float, sigma: float, A, b, c, u,
-                *, chunk: int, ops=_LOCAL):
+class PdhgCarry(NamedTuple):
+    """What a chunk starts from: the iterate, the Halpern anchor, the
+    Halpern step counter since the last restart (0-d f64, an integer) and
+    the step sizes (0-d, ``A.dtype``)."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    ax: torch.Tensor
+    ay: torch.Tensor
+    k0: torch.Tensor
+    tau: torch.Tensor
+    sigma: torch.Tensor
+
+
+class PdhgChunkOut(NamedTuple):
+    """The advanced iterate and the last plain PDHG iterate ``T(z)``."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    x_t: torch.Tensor
+    y_t: torch.Tensor
+
+
+def pdhg_carry(x, y, ax, ay, k0: float, tau: float, sigma: float) -> PdhgCarry:
+    """A chunk's carry from host numbers (one copy to the device each)."""
+    scalar = lambda v, dtype: torch.tensor(v, dtype=dtype, device=x.device)  # noqa: E731
+    return PdhgCarry(x, y, ax, ay, scalar(k0, torch.float64), scalar(tau, x.dtype),
+                     scalar(sigma, x.dtype))
+
+
+def _pdhg_chunk(carry: PdhgCarry, A, b, c, u, *, chunk: int, ops=_LOCAL) -> PdhgChunkOut:
     """Reflected Halpern PDHG (cuPDLPx / Lu-Yang r2HPDHG):
     ``z+ = (k+1)/(k+2) * (2 T(z) - z) + 1/(k+2) * anchor``.
     Returns the advanced state plus the last plain PDHG iterate ``T(z)``
-    (the candidate whose KKT residuals are measured)."""
-    lams = torch.tensor(
-        [(k0 + i + 1.0) / (k0 + i + 2.0) for i in range(chunk)], dtype=torch.float64
-    ).to(device=A.device, dtype=A.dtype)
+    (the candidate whose KKT residuals are measured).  No host read and no
+    host data: the body a graph captures."""
+    ks = carry.k0 + torch.arange(chunk, dtype=torch.float64, device=A.device)
+    lams = ((ks + 1.0) / (ks + 2.0)).to(A.dtype)
     rest = 1.0 - lams
+    tau, sigma, ax, ay = carry.tau, carry.sigma, carry.ax, carry.ay
     zero = torch.zeros((), dtype=A.dtype, device=A.device)
+    x, y = carry.x, carry.y
     x_t, y_t = x, y
     for i in range(chunk):
         g = c - ops.yA(y, A)
@@ -214,7 +250,7 @@ def _pdhg_chunk(x, y, ax, ay, k0: float, tau: float, sigma: float, A, b, c, u,
         y_t = y + sigma * (b - ops.Ax(A, step))
         x, y = (lams[i] * step + rest[i] * ax,
                 lams[i] * (2.0 * y_t - y) + rest[i] * ay)
-    return x, y, x_t, y_t
+    return PdhgChunkOut(x, y, x_t, y_t)
 
 
 def scale_problem(A_np, b_np, c_np, u_np, dtype):
@@ -304,6 +340,16 @@ def pdhg_solve(
     step = 0.9 / norm_A
     w = min(max(w0, 1e-4), 1e4)
 
+    # A chunk replayed from its graph on a card without a mesh, else eager.
+    captured = (graphs.ChunkGraphs()
+                if mesh is None and dev.type in graphs.DEVICE_TYPES else None)
+    inputs = dict(A=A, b=b, c=c, u=u)
+
+    def run_chunk(carry: PdhgCarry) -> PdhgChunkOut:
+        if captured is not None:
+            return captured.run(_pdhg_chunk, carry, inputs, chunk=chunk)
+        return _pdhg_chunk(carry, **inputs, chunk=chunk, ops=ops)
+
     x = torch.zeros_like(c)
     y = torch.zeros_like(b)
     ax, ay = x, y  # Halpern anchor
@@ -317,8 +363,7 @@ def pdhg_solve(
     while stats.iterations < max_iters:
         tau = step / w
         sigma = step * w
-        x, y, x_t, y_t = _pdhg_chunk(x, y, ax, ay, k0, tau, sigma, A, b, c, u,
-                                     chunk=chunk, ops=ops)
+        x, y, x_t, y_t = run_chunk(pdhg_carry(x, y, ax, ay, k0, tau, sigma))
         stats.iterations += chunk
         k0 += chunk
 

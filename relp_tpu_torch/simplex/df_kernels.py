@@ -257,21 +257,23 @@ def df_run_chunk(
     degen_tol: float,
     stop_at_zero: bool = False,
     noisy_scan: bool = False,
+    early_exit: Optional[bool] = None,
 ) -> DfSimplexState:
-    """Run up to ``chunk`` df32 pivots with no host read on CUDA (on the
-    CPU the loop stops at the first inactive iteration; the result is the
-    same)."""
+    """Run up to ``chunk`` df32 pivots.  ``early_exit`` stops at the first
+    inactive iteration (default: on the CPU; the result is the same), a
+    host read an iteration; without it the chunk has no host read."""
+    if early_exit is None:
+        early_exit = A_scan.device.type == "cpu"
     c_scan = ch
     state = state._replace(
         inner=torch.zeros((), dtype=torch.int32, device=ch.device),
         d=c_scan - torch.matmul(state.pi, A_scan),
     )
-    on_cpu = A_scan.device.type == "cpu"
     for _ in range(chunk):
         active = state.status == RUNNING
         if stop_at_zero:
             active = active & (state.obj > 1e-9)
-        if on_cpu and not bool(active):
+        if early_exit and not bool(active):
             break
         state = _df_iteration(
             state, A_scan, Ah, Al, ch, cl, c_scan, candidate_mask, active,

@@ -1,13 +1,16 @@
 """Basis-inverse engines: the port of ``relp_tpu.simplex.engine``.
 
 * :class:`DenseEngine`: explicit dense inverse with rank-1 product-form
-  updates (the fast path).  On a CUDA card, with no mesh, its primal and
-  dual chunks run as captured CUDA graphs (``simplex/graphs.py``); on the
-  CPU and under a mesh they run eagerly.
+  updates (the fast path).
 * :class:`LUEngine`: f32 LU factors + eta ring (``simplex/lu.py``), the
   robustness and cross-check backend, ``basis_inverse="lu"``.
 * :class:`DoubleFloatEngine`: the double-float (two-f32) carry of
   ``simplex/df_kernels.py``, ``carry="df32"``.
+
+On a CUDA card, with no mesh, every engine runs its chunks (the dense
+engine's primal and dual ones) as captured CUDA graphs
+(``simplex/graphs.py``); on the CPU and under a mesh they run eagerly.
+Refactorization, ``recompute_gamma`` and the forced pivot stay eager.
 """
 
 from __future__ import annotations
@@ -48,7 +51,24 @@ def _scalar(value, dtype, device) -> torch.Tensor:
     return torch.tensor(value, dtype=dtype, device=device)
 
 
-class DenseEngine:
+class _CapturedChunks:
+    """An engine's cache of captured chunks."""
+
+    shard = None
+    _graphs: Optional[graphs.ChunkGraphs] = None
+
+    def _chunk_graphs(self, state) -> Optional[graphs.ChunkGraphs]:
+        """This engine's captured chunks when ``state`` lies on a card and
+        the columns are not sharded; None when the chunk runs eagerly (the
+        CPU, and a mesh: capturing its collectives is not done)."""
+        if self.shard is not None or state[0].device.type not in graphs.DEVICE_TYPES:
+            return None
+        if self._graphs is None:
+            self._graphs = graphs.cache()
+        return self._graphs
+
+
+class DenseEngine(_CapturedChunks):
     name = "dense"
 
     # Relative f64 carry-health acceptance: a healthy f32 carry measures
@@ -63,17 +83,6 @@ class DenseEngine:
         # A ``parallel.sharded.ColumnShard`` when the tableau is sharded by
         # column over a mesh: one engine per lowering (``make_engine``).
         self.shard = shard
-        self._graphs: Optional[graphs.ChunkGraphs] = None
-
-    def _chunk_graphs(self, state) -> Optional[graphs.ChunkGraphs]:
-        """This engine's captured chunks when ``state`` lies on a card and
-        the columns are not sharded; None when the chunk runs eagerly (the
-        CPU, and a mesh: capturing its collectives is not done)."""
-        if self.shard is not None or state.Binv.device.type not in graphs.DEVICE_TYPES:
-            return None
-        if self._graphs is None:
-            self._graphs = graphs.cache()
-        return self._graphs
 
     def init_state(self, problem: DeviceProblem, cfg: SolverConfig) -> SimplexState:
         state = self._init_state(problem, cfg)
@@ -249,7 +258,7 @@ class DenseEngine:
         return kernels.forced_pivot(state, A, c, q, r, self.shard)
 
 
-class LUEngine:
+class LUEngine(_CapturedChunks):
     name = "lu"
 
     def __init__(self, device: torch.device, shard=None):
@@ -302,11 +311,18 @@ class LUEngine:
         stop_at_zero=False,
     ):
         # d is recomputed per pivot from pi (no carried d), so the LU path
-        # prices with plain matvecs, not through the fused scan kernel.
+        # prices with plain matvecs, not through the fused scan kernel.  The
+        # ring's fill at entry sets the eta loops' lengths: a graph each.
+        kw = dict(
+            pricing=mode, chunk=cfg.chunk_size, opt_tol=cfg.opt_tol,
+            pivot_tol=cfg.pivot_tol, degen_tol=cfg.feas_tol,
+            stop_at_zero=stop_at_zero, eta0=int(state.eta_count),
+        )
+        captured = self._chunk_graphs(state)
+        if captured is not None:
+            return captured.lu_run_chunk(state, A_scan, A_full, c, candidate_mask, **kw)
         return lu_mod.lu_run_chunk(
-            state, A_scan, A_full, c, candidate_mask, pricing=mode,
-            chunk=cfg.chunk_size, opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol,
-            degen_tol=cfg.feas_tol, stop_at_zero=stop_at_zero, shard=self.shard,
+            state, A_scan, A_full, c, candidate_mask, shard=self.shard, **kw
         )
 
     def recompute_gamma(self, state, A_scan):
@@ -371,7 +387,7 @@ def _lu_forced_pivot(state, A, c, q: int, r: int, shard=None):
     )
 
 
-class DoubleFloatEngine:
+class DoubleFloatEngine(_CapturedChunks):
     """Double-float (two-f32) carry: B^-1, x_B and pi as hi+lo pairs with
     compensated updates (``simplex/df_kernels``), f64-grade drift from f32
     operations.  The problem arrives as DfMatrix/DfVec pairs (the driver
@@ -429,7 +445,9 @@ class DoubleFloatEngine:
     ):
         from relp_tpu_torch.simplex.df_kernels import df_run_chunk
 
-        return df_run_chunk(
+        captured = self._chunk_graphs(state)
+        run = df_run_chunk if captured is None else captured.df_run_chunk
+        return run(
             state, self._scan_of(A_scan), A_full.hi, A_full.lo, c.hi, c.lo,
             candidate_mask, pricing=mode, chunk=cfg.chunk_size,
             opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol, degen_tol=cfg.feas_tol,

@@ -37,7 +37,7 @@ Differences from the JAX code, and why:
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, NamedTuple
+from typing import Any, Dict, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -310,25 +310,33 @@ def lu_run_chunk(
     degen_tol: float,
     stop_at_zero: bool = False,
     shard=None,
+    eta0: Optional[int] = None,
+    early_exit: Optional[bool] = None,
 ) -> LUState:
     """Run pivots until the eta ring fills, the chunk budget is spent, or the
-    phase terminates; one host read (the ring's fill) per chunk.  With a
-    ``shard`` the column-sized inputs are this rank's block; the replicated
-    carry makes every rank take the same branches."""
+    phase terminates.  ``eta0`` is the ring's fill at entry (``eta_count``,
+    read on the host when not given): iteration i's eta loops run
+    ``min(K, eta0 + i)`` slots.  ``early_exit`` stops at the first inactive
+    iteration (default: on the CPU), a host read an iteration; without it
+    the chunk has no host read.  With a ``shard`` the column-sized inputs
+    are this rank's block; the replicated carry makes every rank take the
+    same branches."""
     K = state.eta_vals.shape[0]
+    if eta0 is None:
+        eta0 = int(state.eta_count)
+    if early_exit is None:
+        early_exit = A_scan.device.type == "cpu"
     state = state._replace(
         inner=torch.zeros((), dtype=torch.int32, device=c.device),
         eta_vals=state.eta_vals.clone(),
         eta_rows=state.eta_rows.clone(),
     )
     c_scan = c.to(A_scan.dtype)
-    eta0 = int(state.eta_count)
-    on_cpu = A_scan.device.type == "cpu"
     for i in range(chunk):
         active = (state.status == RUNNING) & (state.eta_count < K)
         if stop_at_zero:
             active = active & (state.obj > 1e-9)
-        if on_cpu and not bool(active):
+        if early_exit and not bool(active):
             break
         state = _lu_iteration(
             state, A_scan, A_full, c, c_scan, candidate_mask, active,

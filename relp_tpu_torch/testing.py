@@ -285,3 +285,88 @@ def chunk_case(kind, state, A, c, candidate_mask, chunk=60):
         state = state._replace(d=state.d.to(torch.bfloat16))
     return ("run_chunk", (state, A_scan, A, c, candidate_mask),
             dict(primal, stop_at_zero=kind == "stop_at_zero"))
+
+
+def lu_start(m=32, n=64, pad=32, dtype=np.float32, seed=0, capacity=60, device="cpu"):
+    """``synthetic_problem`` at its artificial start as the inputs of an LU
+    chunk on ``device``: (state, A, c1, c2, candidate_mask), the state with
+    fresh factors of the start basis, an empty ring of ``capacity`` slots,
+    priced with the phase-1 costs c1."""
+    import torch
+
+    from relp_tpu_torch.simplex import lu
+    from relp_tpu_torch.simplex.state import RUNNING
+
+    A, b, c1, c2, cand, basis = synthetic_problem(m=m, n=n, pad=pad, dtype=dtype,
+                                                  seed=seed)
+    A_t, b_t, c1_t, c2_t, cand_t, basis_t = (
+        torch.as_tensor(x, device=device) for x in (A, b, c1, c2, cand, basis))
+    factors, piv, B0, eta_vals, eta_rows, xB, pi, obj, _res = lu.lu_refactorize(
+        A_t, b_t, c1_t, basis_t, eta_capacity=capacity)
+    in_basis = torch.zeros(A.shape[1], dtype=torch.bool, device=device)
+    in_basis[basis_t.long()] = True
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    state = lu.LUState(
+        lu=factors, piv=piv, B0=B0, eta_vals=eta_vals, eta_rows=eta_rows,
+        eta_count=zero, basis=basis_t, xB=xB, pi=pi, obj=obj, in_basis=in_basis,
+        gamma=torch.ones(A.shape[1], dtype=A_t.dtype, device=device),
+        iteration=zero, status=torch.tensor(RUNNING, dtype=torch.int32, device=device),
+        inner=zero, price_start=zero)
+    return state, A_t, c1_t, c2_t, cand_t
+
+
+# The kinds of chunk of the LU, df32 and PDHG bodies that ``body_case``
+# builds: the LU chunk with steepest edge from an empty ring, from a ring
+# of LU_ETA0 etas, the same with phase 1's stop at zero and with Dantzig
+# pricing; the df32 chunk (steepest edge); the PDHG chunk.
+BODY_KINDS = ("lu_steepest", "lu_steepest_eta", "lu_stop_at_zero_eta",
+              "lu_dantzig_eta", "df32", "pdhg")
+LU_ETA0 = 7
+
+
+def body_case(kind, m, n, pad=128, seed=7, device="cpu", chunk=60):
+    """(start, eager, graphed) of one kind of chunk (``BODY_KINDS``) on
+    ``device``: ``eager(state)`` runs the body eagerly from ``state``,
+    ``graphed(cache, state)`` the same chunk through a
+    ``simplex.graphs.ChunkGraphs`` cache, and ``start`` is the chunk-entry
+    state.  The simplex kinds start from ``synthetic_problem(m, n, pad,
+    seed)`` (f32; the df32 chunk from its f64 lowering, split), the LU
+    kinds ending in ``_eta`` after an eager chunk of LU_ETA0 pivots; the
+    PDHG chunk from ``pdhg_lp(m, n, seed)`` scaled as ``pdhg_solve`` scales
+    it, at a zero iterate with the Halpern counter at 200 and a primal
+    weight of 2."""
+    import torch
+
+    from relp_tpu_torch.firstorder import pdhg
+    from relp_tpu_torch.ops.df32 import df_from_f64
+    from relp_tpu_torch.simplex import df_kernels, lu
+    from relp_tpu_torch.simplex.kernels import PRICE_DANTZIG, PRICE_STEEPEST
+
+    tols = dict(opt_tol=1e-7, pivot_tol=1e-7, degen_tol=1e-7)
+    if kind.startswith("lu_"):
+        state, A, c1, _c2, mask = lu_start(m=m, n=n, pad=pad, seed=seed, device=device)
+        args = (A, A, c1, mask)
+        kw = dict(tols, chunk=chunk, stop_at_zero="stop_at_zero" in kind,
+                  pricing=PRICE_DANTZIG if "dantzig" in kind else PRICE_STEEPEST)
+        if kind.endswith("_eta"):
+            state = lu.lu_run_chunk(state, *args, **dict(kw, chunk=LU_ETA0))
+        return (state, lambda st: lu.lu_run_chunk(st, *args, **kw),
+                lambda cache, st: cache.lu_run_chunk(st, *args, **kw))
+    if kind == "df32":
+        A64, b64, c64, _c2, cand, basis = synthetic_problem(m=m, n=n, pad=pad, seed=seed)
+        state = df_kernels.df_make_state(A64, b64, c64, basis, device)
+        (Ah, Al), (ch, cl) = df_from_f64(A64, device), df_from_f64(c64, device)
+        args = (Ah, Ah, Al, ch, cl, torch.as_tensor(cand, device=device))
+        kw = dict(tols, chunk=chunk, pricing=PRICE_STEEPEST)
+        return (state, lambda st: df_kernels.df_run_chunk(st, *args, **kw),
+                lambda cache, st: cache.df_run_chunk(st, *args, **kw))
+    if kind == "pdhg":
+        As, bs, cs, us, _d_row, _d_col = pdhg.scale_problem(*pdhg_lp(m, n, seed), np.float32)
+        A, b, c, u = (torch.as_tensor(v, device=device) for v in (As, bs, cs, us))
+        inputs = dict(A=A, b=b, c=c, u=u)
+        step, w = 0.9 / pdhg._power_norm(A), 2.0
+        x, y = torch.zeros_like(c), torch.zeros_like(b)
+        state = pdhg.pdhg_carry(x, y, x, y, 200.0, step / w, step * w)
+        return (state, lambda st: pdhg._pdhg_chunk(st, **inputs, chunk=chunk),
+                lambda cache, st: cache.run(pdhg._pdhg_chunk, st, inputs, chunk=chunk))
+    raise ValueError(f"unknown kind of chunk {kind!r}")

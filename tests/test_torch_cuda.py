@@ -24,7 +24,10 @@ The three other solve modes (``--mip``, ``--first-order``, ``--basis-inverse
 lu``) give the CPU's payload on knap6, and PDHG on CUDA walks the CPU's
 iterations.  A dense chunk replayed from its CUDA graph gives the eager
 chunk's bits, primal and dual, at an aligned, an unaligned and a ragged
-shape.
+shape; so do the LU chunk (entering with an empty ring and with etas in
+it), the df32 chunk (with the eager chunk's scan launches) and the PDHG
+chunk, and whole solves with ``basis_inverse="lu"`` and ``carry="df32"``
+and ``pdhg_solve`` give the eager results through them.
 """
 
 import os
@@ -164,6 +167,73 @@ def test_graphed_chunk_equals_eager_chunk(cuda_device, shape, kind):
             assert g.dtype == e.dtype and torch.equal(
                 g.reshape(-1).view(torch.uint8), e.reshape(-1).view(torch.uint8)), field
     assert int(eager_state.iteration) > 0
+
+
+@pytest.mark.parametrize("kind", ["lu_steepest", "lu_steepest_eta", "lu_stop_at_zero_eta",
+                                  "lu_dantzig_eta", "df32", "pdhg"])
+@pytest.mark.parametrize("shape", sorted(CHUNK_SHAPES))
+def test_graphed_body_equals_eager_chunk(cuda_device, shape, kind):
+    """The LU, df32 and PDHG chunks of testing.body_case replayed from their
+    CUDA graphs against the eager chunk from the same state: every field
+    bitwise equal, the same scan launches counted (the df32 chunk's only),
+    and a replay from the first one's output equal to the eager chunk
+    from there."""
+    from relp_tpu_torch.simplex import graphs
+    from relp_tpu_torch.testing import body_case
+
+    m, n, pad = CHUNK_SHAPES[shape]
+    start, eager, graphed = body_case(kind, m, n, pad=pad, device=cuda_device, chunk=40)
+    cache = graphs.ChunkGraphs()
+    state = start
+    for _ in range(2 if kind != "pdhg" else 1):
+        launches = price_scan.LAUNCHES
+        want = eager(state)
+        eager_launches = price_scan.LAUNCHES - launches
+        got = graphed(cache, state)
+        torch.cuda.synchronize()
+        assert price_scan.LAUNCHES - launches == 2 * eager_launches
+        assert (eager_launches > 0) == (kind == "df32")
+        for field, g, e in zip(want._fields, got, want):
+            assert g.dtype == e.dtype and torch.equal(
+                g.reshape(-1).view(torch.uint8), e.reshape(-1).view(torch.uint8)), field
+        state = got
+    if kind != "pdhg":
+        assert int(want.iteration) > int(start.iteration)
+
+
+@pytest.mark.parametrize("mode", ["lu", "df32", "pdhg"])
+def test_graphed_solves_equal_eager_solves(cuda_device, mode):
+    """A solve on the card with every chunk replayed from its graph and the
+    same solve with graphs.DEVICE_TYPES emptied (eager chunks): the same
+    verdict, exact objective, basis, pivots and chunks (basis_inverse="lu",
+    carry="df32"), the same PDHG point bit for bit and statistics."""
+    from relp_tpu_torch.firstorder import pdhg
+    from relp_tpu_torch.simplex import graphs
+    from relp_tpu_torch.testing import pdhg_lp
+
+    def solve():
+        if mode == "pdhg":
+            x, y, st = pdhg.pdhg_solve(*pdhg_lp(64, 256, 7), max_iters=4_000,
+                                       device=cuda_device)
+            return x.tobytes(), y.tobytes(), st.iterations, st.restarts
+        cfg = dict(basis_inverse="lu") if mode == "lu" else dict(carry="df32")
+        result, _solution = solve_general_form(generated_lp(64, 256, 7),
+                                               SolverConfig(**cfg))
+        assert result.stats.certified
+        return (result.status, result.exact_objective, result.basis,
+                result.stats.iterations, result.stats.chunks)
+
+    replays = graphs.REPLAYS
+    graphed = solve()
+    assert graphs.REPLAYS > replays
+    kept = graphs.DEVICE_TYPES
+    graphs.DEVICE_TYPES = ()
+    try:
+        replays = graphs.REPLAYS
+        assert solve() == graphed
+        assert graphs.REPLAYS == replays
+    finally:
+        graphs.DEVICE_TYPES = kept
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

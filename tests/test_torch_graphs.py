@@ -17,7 +17,17 @@ host data.  The tests hold:
 * a replayed chunk equal, bit for bit, to the eager chunk, primal and dual;
 * ``solve_general_form`` / ``solve_relaxation`` through ``DenseEngine``
   with captured chunks giving the eager path's pivots, bases and exact
-  objectives on the CPU-sized cases of tests/test_torch_driver.py.
+  objectives on the CPU-sized cases of tests/test_torch_driver.py;
+* the LU chunk (steepest edge and Dantzig, entering with an empty ring and
+  with etas in it, with and without phase 1's stop at zero), the df32
+  chunk and the PDHG chunk (replayed with a changed Halpern counter and
+  step sizes) each bitwise equal to its eager chunk; the key apart for
+  the ring's fill at entry and for the body; the caller's eta ring left
+  as it was;
+* whole solves with ``basis_inverse="lu"`` and ``carry="df32"`` through
+  captured chunks giving the eager pivots, bases and exact objectives,
+  and ``pdhg_solve`` / ``solve_first_order`` the eager iterates and
+  restarts.
 
 The card's own graphs are held to eager chunks in tests/test_torch_cuda.py.
 """
@@ -30,9 +40,26 @@ from torch.utils._pytree import tree_leaves
 
 from relp_tpu_torch.config import SolverConfig
 from relp_tpu_torch.ops import price_scan
-from relp_tpu_torch.simplex import graphs, kernels, solve_general_form, solve_relaxation
+from relp_tpu_torch.firstorder import pdhg, solve_first_order
+from relp_tpu_torch.simplex import (
+    df_kernels,
+    graphs,
+    kernels,
+    lu,
+    solve_general_form,
+    solve_relaxation,
+)
 from relp_tpu_torch.simplex.state import SimplexState
-from relp_tpu_torch.testing import CHUNK_KINDS, chunk_case, synthetic_start
+from relp_tpu_torch.testing import (
+    BODY_KINDS,
+    CHUNK_KINDS,
+    body_case,
+    chunk_case,
+    lu_start,
+    pdhg_lp,
+    synthetic_problem,
+    synthetic_start,
+)
 from tests.test_torch_batch import one_torch_thread  # noqa: F401  (autouse)
 from tests.test_torch_driver import PORT, SCAN_BF16, SIMPLEX_SMALL
 
@@ -102,6 +129,7 @@ def counting(monkeypatch):
         return price_scan.fused_price_scan_reference(P, A, c, gamma, gamma_q)
 
     monkeypatch.setattr(kernels, "fused_price_scan", scan)
+    monkeypatch.setattr(df_kernels, "fused_price_scan", scan)
     monkeypatch.setattr(price_scan, "LAUNCHES", 0)
     monkeypatch.setattr(price_scan, "LAUNCHES_BY_DTYPE",
                         dict.fromkeys(price_scan.LAUNCHES_BY_DTYPE, 0))
@@ -127,8 +155,10 @@ def _bits(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1).view(torch.uint8) if x.dtype != torch.bool else x
 
 
-def _assert_bitwise(got: SimplexState, want: SimplexState):
-    for name, g, w in zip(SimplexState._fields, got, want):
+def _assert_bitwise(got, want):
+    """Every field of two NamedTuples of tensors bitwise equal."""
+    assert type(got) is type(want)
+    for name, g, w in zip(want._fields, got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert torch.equal(_bits(g), _bits(w)), name
 
@@ -352,3 +382,191 @@ def test_a_shared_cache_serves_the_solves_of_one_shape(monkeypatch):
     assert [_solve_summary(r) for r in captured] == [_solve_summary(r) for r in eager]
     assert graphs.CAPTURES == len(cache._entries) < graphs.REPLAYS
     assert graphs.REPLAYS == sum(r.stats.chunks for r in captured)
+
+
+@pytest.mark.parametrize("kind", BODY_KINDS)
+def test_each_body_replays_the_eager_bits(recording, kind):
+    """The LU, df32 and PDHG chunks of testing.body_case (chip_smoke's
+    chunk/graph line and the card's tests compare the same kinds)."""
+    start, eager, graphed = body_case(kind, 20, 36, pad=8, chunk=15)
+    want = eager(start)
+    _assert_bitwise(graphed(graphs.ChunkGraphs(), start), want)
+    if kind != "pdhg":
+        assert int(want.iteration) > int(start.iteration)
+
+
+LU_KW = dict(chunk=6, opt_tol=1e-9, pivot_tol=1e-9, degen_tol=1e-9)
+
+
+@pytest.mark.parametrize("stop_at_zero", [False, True])
+@pytest.mark.parametrize("pricing", [kernels.PRICE_STEEPEST, kernels.PRICE_DANTZIG])
+def test_replayed_lu_chunks_equal_eager_chunks(recording, pricing, stop_at_zero):
+    """LU chunk after LU chunk from the phase-1 start, each replay from the
+    last one's output: the first enters with an empty ring, the later ones
+    with 6, 12 and 18 etas in a ring of 20 (the last fills it), each a
+    capture of its own; every output the eager chunk's bits."""
+    state, A, c1, _c2, mask = lu_start(m=24, n=40, pad=8, seed=3, capacity=20)
+    cache, graphed, eager = graphs.ChunkGraphs(), state, state
+    kw = dict(LU_KW, pricing=pricing, stop_at_zero=stop_at_zero)
+    entries = []
+    for _ in range(4):
+        entries.append(int(eager.eta_count))
+        graphed = cache.lu_run_chunk(graphed, A, A, c1, mask, **kw)
+        eager = lu.lu_run_chunk(eager, A, A, c1, mask, **kw)
+        _assert_bitwise(graphed, eager)
+    assert int(eager.iteration) > 6 and len(set(entries)) > 1
+    assert cache.captured(lu.lu_run_chunk, "eta0") == dict.fromkeys(entries, 1)
+    assert graphs.CAPTURES == len(set(entries))
+
+
+def test_lu_key_separates_eta0_and_the_body(recording):
+    """The ring's fill at entry is part of the LU chunk's key, as are the
+    body and the state's type; eta0 given or read from the state is one
+    key."""
+    state, A, c1, _c2, mask = lu_start(m=24, n=40, pad=8, seed=3, capacity=20)
+    cache = graphs.ChunkGraphs()
+    kw = dict(LU_KW, pricing=kernels.PRICE_STEEPEST)
+
+    def captures(run, *args, **more):
+        before = graphs.CAPTURES
+        run(*args, **dict(kw, **more))
+        return graphs.CAPTURES - before
+
+    after = lu.lu_run_chunk(state, A, A, c1, mask, **dict(kw, chunk=3))
+    assert captures(cache.lu_run_chunk, state, A, A, c1, mask) == 1
+    assert captures(cache.lu_run_chunk, state, A, A, c1, mask, eta0=0) == 0
+    assert captures(cache.lu_run_chunk, after, A, A, c1, mask) == 1
+    assert captures(cache.lu_run_chunk, after, A, A, c1, mask, eta0=3) == 0
+    assert captures(cache.lu_run_chunk, state, A, A, c1, mask, stop_at_zero=True) == 1
+    assert cache.captured(lu.lu_run_chunk, "eta0") == {0: 2, 3: 1}
+    # The dense chunk at the same shapes is another body and state type.
+    dense, A_d, c1_d, _c2_d, mask_d = synthetic_start(m=24, n=40, pad=8, seed=3,
+                                                      dtype=np.float32)
+    assert captures(cache.run_chunk, dense, A_d, A_d, c1_d, mask_d) == 1
+    assert cache.captured(kernels.run_chunk, "pricing") == {kernels.PRICE_STEEPEST: 1}
+
+
+def test_a_replayed_lu_chunk_leaves_the_callers_ring_unchanged(recording):
+    """The chunk writes its etas into its own clone of the static ring: the
+    caller's state (a chunk entry the driver may roll back to) keeps every
+    bit, also after later replays, and the output is a tensor of its own."""
+    state, A, c1, _c2, mask = lu_start(m=24, n=40, pad=8, seed=3, capacity=20)
+    state = lu.lu_run_chunk(state, A, A, c1, mask, pricing=kernels.PRICE_STEEPEST,
+                            **dict(LU_KW, chunk=2))
+    kept = lu.LUState(*(x.clone() for x in state))
+    cache = graphs.ChunkGraphs()
+    kw = dict(LU_KW, pricing=kernels.PRICE_STEEPEST)
+    first = cache.lu_run_chunk(state, A, A, c1, mask, **kw)
+    cache.lu_run_chunk(first, A, A, c1, mask, **kw)
+    cache.lu_run_chunk(state, A, A, c1, mask, **kw)
+    _assert_bitwise(state, kept)
+    assert int(first.eta_count) == int(state.eta_count) + 6
+    assert not torch.equal(first.eta_vals, state.eta_vals)
+    assert first.eta_vals.data_ptr() != state.eta_vals.data_ptr()
+
+
+@pytest.mark.parametrize("stop_at_zero", [False, True])
+def test_replayed_df32_chunks_equal_eager_chunks(recording, counting, stop_at_zero):
+    """df32 chunk after df32 chunk, each replay from the last one's output:
+    the eager bits, and the scan launches of the eager chunks counted."""
+    start, _eager, _graphed = body_case("df32", 24, 40, pad=8, seed=3)
+    A64, _b, c64, _c2, cand, _basis = synthetic_problem(m=24, n=40, pad=8, seed=3)
+    from relp_tpu_torch.ops.df32 import df_from_f64
+
+    (Ah, Al), (ch, cl) = df_from_f64(A64), df_from_f64(c64)
+    args = (Ah, Ah, Al, ch, cl, torch.as_tensor(cand))
+    kw = dict(pricing=kernels.PRICE_STEEPEST, chunk=6, opt_tol=1e-9, pivot_tol=1e-9,
+              degen_tol=1e-9, stop_at_zero=stop_at_zero)
+    cache, graphed, eager = graphs.ChunkGraphs(), start, start
+    for _ in range(3):
+        graphed = cache.df_run_chunk(graphed, *args, **kw)
+        launches = price_scan.LAUNCHES
+        eager = df_kernels.df_run_chunk(eager, *args, early_exit=False, **kw)
+        assert price_scan.LAUNCHES - launches == 6
+        _assert_bitwise(graphed, eager)
+    assert price_scan.LAUNCHES == 2 * 18
+    assert int(eager.iteration) > 6 and graphs.CAPTURES == 1
+
+
+def test_replayed_pdhg_chunks_follow_changed_k0_tau_and_sigma(recording):
+    """One graph serves every chunk of a PDHG solve: the Halpern counter,
+    the step sizes and the anchor are copied in with the iterate, so a
+    replay with other values gives the eager chunk's bits."""
+    As, bs, cs, us, _dr, _dc = pdhg.scale_problem(*pdhg_lp(12, 30, 5), np.float32)
+    A, b, c, u = (torch.as_tensor(v) for v in (As, bs, cs, us))
+    inputs = dict(A=A, b=b, c=c, u=u)
+    cache = graphs.ChunkGraphs()
+    x, y = torch.zeros_like(c), torch.zeros_like(b)
+    ax, ay = x, y
+    for k0, tau, sigma in ((0.0, 0.3, 0.3), (20.0, 0.3, 0.3), (40.0, 0.15, 0.6),
+                           (0.0, 0.6, 0.15)):
+        carry = pdhg.pdhg_carry(x, y, ax, ay, k0, tau, sigma)
+        graphed = cache.run(pdhg._pdhg_chunk, carry, inputs, chunk=20)
+        eager = pdhg._pdhg_chunk(carry, **inputs, chunk=20)
+        _assert_bitwise(graphed, eager)
+        x, y = graphed.x, graphed.y
+        if k0 == 40.0:
+            ax, ay = graphed.x_t, graphed.y_t
+    assert graphs.CAPTURES == 1 and graphs.REPLAYS == 4
+    assert float(torch.linalg.vector_norm(x)) > 0.0
+
+
+def _captured_solve(monkeypatch, solve):
+    """``solve()`` with the engines' chunks captured (the stand-in), and the
+    replays it made."""
+    with monkeypatch.context() as patched:
+        patched.setattr(graphs, "Graph", RecordingGraph)
+        patched.setattr(graphs, "DEVICE_TYPES", ("cuda", "cpu"))
+        patched.setattr(graphs, "REPLAYS", 0)
+        result = solve()
+        return result, graphs.REPLAYS
+
+
+@pytest.mark.parametrize("mode", ["lu", "df32"])
+@pytest.mark.parametrize("name", sorted(SIMPLEX_SMALL))
+def test_lu_and_df32_solves_through_captured_chunks_match_eager(monkeypatch, name, mode):
+    """solve_general_form with basis_inverse="lu" (f32) and carry="df32"
+    with captured chunks and eager: the same verdict, exact objective,
+    basis, pivots and chunks, every chunk a replay."""
+    build, overrides = SIMPLEX_SMALL[name]
+    mode_cfg = dict(basis_inverse="lu") if mode == "lu" else dict(carry="df32")
+    cfg = SolverConfig(dtype="float32", platform="cpu", **overrides, **mode_cfg)
+    eager, _solution = solve_general_form(build(PORT), cfg)
+    (captured, _solution), replays = _captured_solve(
+        monkeypatch, lambda: solve_general_form(build(PORT), cfg))
+    assert _solve_summary(captured) == _solve_summary(eager)
+    assert replays == captured.stats.chunks
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_pdhg_solve_through_captured_chunks_matches_eager(monkeypatch, dtype):
+    """pdhg_solve with its chunks captured: the eager iterates, bit for bit,
+    the same iterations, restarts and residuals; one capture a call."""
+    A, b, c, u = pdhg_lp(16, 40, 11)
+    kw = dict(tol=1e-7, max_iters=6_000, chunk=100, dtype=dtype, device="cpu")
+    xe, ye, se = pdhg.pdhg_solve(A, b, c, u, **kw)
+    monkeypatch.setattr(graphs, "CAPTURES", 0)
+    (xg, yg, sg), replays = _captured_solve(
+        monkeypatch, lambda: pdhg.pdhg_solve(A, b, c, u, **kw))
+    assert np.array_equal(xg, xe) and np.array_equal(yg, ye)
+    assert (sg.iterations, sg.restarts, sg.converged, sg.primal_residual,
+            sg.dual_residual, sg.gap) == (se.iterations, se.restarts, se.converged,
+                                          se.primal_residual, se.dual_residual, se.gap)
+    assert se.restarts > 0 and replays == se.iterations // 100
+    assert graphs.CAPTURES == 1
+
+
+def test_solve_first_order_through_captured_chunks_matches_eager(monkeypatch):
+    """solve_first_order (PDHG, crossover, the exact finish) with every
+    chunk captured, PDHG's and the finish's: the eager verdict, objective,
+    basis and pivots, and the eager PDHG statistics."""
+    gf = SIMPLEX_SMALL["degenerate_lp"][0](PORT)
+    md = gf.derive_matrix_data(gf.standardize())
+    cfg = SolverConfig(platform="cpu", pad_to=8)
+    eager = solve_first_order(md, cfg, max_iters=2_000)
+    captured, replays = _captured_solve(
+        monkeypatch, lambda: solve_first_order(md, cfg, max_iters=2_000))
+    assert _solve_summary(captured) == _solve_summary(eager)
+    assert vars(captured.first_order_stats) | {"wall_time_s": 0} == (
+        vars(eager.first_order_stats) | {"wall_time_s": 0})
+    assert replays == eager.first_order_stats.iterations // 200 + captured.stats.chunks
