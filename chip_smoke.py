@@ -75,7 +75,10 @@ Takes no arguments and needs no network.  Phases, one line each (or more):
                    families of relp_tpu_torch.testing (256 x 128x384 and
                    128 x 512x1408 lowered): every LP certified, the pinned
                    digest of the exact objectives, HiGHS on three scenarios,
-                   the kernel of each family launched, peak device memory;
+                   the kernel of each family launched, peak device memory,
+                   the wall split (device solve, certification) and the
+                   steps' graphs (graphs=captures/replays/capture seconds,
+                   from the process-wide cache of steps);
  10. batch/memory  peak device memory of each family's solve_batch (no
                    certification) with the one shared tableau and with B
                    stacked copies of it (the first port's layout): the same
@@ -86,8 +89,19 @@ Takes no arguments and needs no network.  Phases, one line each (or more):
                    the phase-2 chunks on the batched torch path and no
                    kernel launch;
  12. batch/chunk   marginal pivots/s of the whole batch from the phase-2
-                   start, kernel path and plain path, at both family shapes,
-                   over a window in which every LP pivots.
+                   start, kernel path, plain path (the batched torch chunk,
+                   eager) and the same chunk replayed from its CUDA graph,
+                   at both family shapes, over a window in which every LP
+                   pivots;
+ 12a. batch/graph  solve_batch's device steps at the families' shapes, each
+                   eager and replayed from a CUDA graph from one state, then
+                   once more from its output: _batch_step through each
+                   batched-pivot kernel and on the batched torch path (f32,
+                   f64 with f32 scans; with and without the stop at zero),
+                   the warm family's dual chunk, the f64 polish chunk; the
+                   whole state and the report bitwise equal, the kernels'
+                   launches of a replay those of an eager step, the capture
+                   seconds, a replay's and the eager step's ms.
 
 The other solve modes follow, each with every kernel's launch count from 0
 just before it (a `launches` line after each, with the captured chunks'
@@ -120,8 +134,16 @@ graphs=captures/replays/capture seconds of the path):
                    version on the inputs this path gave it (mip/kernel);
  15. mip/real64    the same knapsack with --dtype float64 and 16 nodes a
                    wave to a certified optimum: HiGHS's, an exactly
-                   feasible incumbent, the waves in the batch; its first
-                   scan of each dtype replayed and timed (mip64/kernel);
+                   feasible incumbent, the waves in the batch; the split of
+                   its wall (device solve, certification, B&B host) and
+                   its graphs; its first scan of each dtype replayed and
+                   timed (mip64/kernel);
+ 15a. mip/real64/eager
+                   the same search with every step and chunk eager, cut at
+                   400 nodes (about a fifth): its LP solves, call by call,
+                   mip/real64's (each call's statuses, bases and pivots by
+                   digest; the cut's narrower wave apart), the seconds of
+                   those calls eager and graphed;
  16. first_order/real
                    solve_first_order (PDHG cut at 20,000 iterations) on
                    main/real's LP: certified, the pinned digest; PDHG
@@ -763,7 +785,7 @@ def _graph_counts():
     from relp_tpu_torch.simplex import graphs
 
     return {"captures": graphs.CAPTURES, "replays": graphs.REPLAYS,
-            "capture_s": graphs.CAPTURE_SECONDS}
+            "capture_s": graphs.CAPTURE_SECONDS, "evictions": graphs.EVICTIONS}
 
 
 def _graph_fields(counts):
@@ -1320,11 +1342,13 @@ def phase_batch_family(torch, np, label, fam, digest_want, warm_start_basis=None
     providers = scenario_family(**fam)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    counts = _graph_counts()
     t0 = time.perf_counter()
     results = solve_batch(providers, _batch_config(), certify=True,
                           shared_structure=True, warm_start_basis=warm_start_basis)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    counts = {k: v - counts[k] for k, v in _graph_counts().items()}
     peak = torch.cuda.max_memory_allocated()
     bad = [k for k, r in enumerate(results)
            if r.status is not SolveStatus.FINITE_OPTIMUM or not r.stats.certified]
@@ -1348,50 +1372,98 @@ def phase_batch_family(torch, np, label, fam, digest_want, warm_start_basis=None
         device_pivots_per_s=f"{pivots / solve_s:.0f}",
         launches_resident=batch_pivot.LAUNCHES_RESIDENT,
         launches_blocked=batch_pivot.LAUNCHES_BLOCKED,
-        peak_device_MB=f"{peak / 1e6:.1f}",
+        graphs=_graph_fields(counts), graph_evictions=counts["evictions"],
+        **_step_cache_fields(), peak_device_MB=f"{peak / 1e6:.1f}", **_CARD,
     )
     return results
 
 
+def _step_cache_fields():
+    """The process-wide cache of steps: its entries, the bytes it holds
+    (pools, static buffers, tensors read in place), its largest graph pool
+    and the batch widths of its entries."""
+    from relp_tpu_torch.simplex import graphs
+
+    entries = list(graphs.steps()._entries.values())
+    widths = sorted({entry.slots[0][1][0] for entry in entries})  # state's B
+    return dict(step_cache_entries=len(entries),
+                step_cache_MB=f"{graphs.steps().nbytes() / 1e6:.1f}",
+                step_pool_max_MB=f"{max((e.pool_bytes for e in entries), default=0) / 1e6:.1f}",
+                step_widths=",".join(map(str, widths)) or "none")
+
+
 def phase_batch_memory(torch):
-    """Peak device memory of solve_batch (no certification) on each cold
-    family, with the one shared tableau that lower_batch hands out and with
-    B stacked copies of it (the first port's layout, made here by a
-    lower_batch that returns A.contiguous()): the same results, and the
-    bytes the shared tableau saves."""
+    """Device memory of solve_batch (no certification) on each cold family,
+    with the one shared tableau that lower_batch hands out and with B
+    stacked copies of it (the default layout, made here by a lower_batch
+    that returns A.contiguous()), each with the steps replayed and with
+    every step eager, each from an empty cache of steps and an emptied
+    allocator cache: the same results, the peak allocated and reserved
+    bytes, what stays allocated after the call, and the cache of steps
+    (its bytes and its largest pool when the call's steps end, before a
+    stacked tableau's steps are released)."""
     from relp_tpu_torch.parallel import batch_driver, solve_batch
+    from relp_tpu_torch.simplex import graphs
     from relp_tpu_torch.testing import FAMILIES, scenario_family
 
-    kept = batch_driver.lower_batch
+    kept, release = batch_driver.lower_batch, graphs.ChunkGraphs.release
+    at_release = {}
 
     def with_copies(*args, **kwargs):
         problems, A, *rest = kept(*args, **kwargs)
         return (problems, A.contiguous(), *rest)
 
+    def recording_release(cache, *tensors):
+        at_release.update(_step_cache_fields())
+        return release(cache, *tensors)
+
     for name, fam in FAMILIES.items():
         peaks, outcomes = {}, {}
-        for layout, lower in (("shared", kept), ("copies", with_copies)):
+        for run, lower, graphed in (("shared", kept, True), ("shared_eager", kept, False),
+                                    ("copies", with_copies, True),
+                                    ("copies_eager", with_copies, False)):
             providers = scenario_family(**fam)
             batch_driver.lower_batch = lower
+            graphs.ChunkGraphs.release = recording_release
+            steps = graphs.DEVICE_TYPES
+            if not graphed:
+                graphs.DEVICE_TYPES = ()
+            graphs._STEPS = None
+            at_release.clear()
             try:
                 torch.cuda.synchronize()
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
                 results = solve_batch(providers, _batch_config(), certify=False,
                                       shared_structure=True)
                 torch.cuda.synchronize()
-                peaks[layout] = torch.cuda.max_memory_allocated()
+                peaks[run] = torch.cuda.max_memory_allocated()
+                _line("batch/memory", family=name, run=run, scenarios=fam["count"],
+                      peak_allocated_MB=f"{peaks[run] / 1e6:.1f}",
+                      peak_reserved_MB=f"{torch.cuda.max_memory_reserved() / 1e6:.1f}",
+                      kept_after_MB=f"{(torch.cuda.memory_allocated() - before) / 1e6:.1f}",
+                      **{f"at_release_{k}": v for k, v in at_release.items()},
+                      **{f"after_{k}": v for k, v in _step_cache_fields().items()
+                         if k in ("step_cache_entries", "step_cache_MB")}, **_CARD)
+                _check(lower is kept or not graphs.steps()._entries,
+                       f"batch/memory {name}: the cache kept steps of a stacked tableau")
             finally:
                 batch_driver.lower_batch = kept
-            outcomes[layout] = [(r.status.value, tuple(r.basis), r.stats.iterations)
-                                for r in results]
-        _check(outcomes["shared"] == outcomes["copies"],
-               f"{name}: one shared tableau and B copies solve differently")
+                graphs.ChunkGraphs.release = release
+                graphs.DEVICE_TYPES = steps
+                graphs._STEPS = None
+            outcomes[run] = [(r.status.value, tuple(r.basis), r.stats.iterations)
+                             for r in results]
+        _check(len({repr(o) for o in outcomes.values()}) == 1,
+               f"{name}: one shared tableau, B copies and eager steps solve differently")
         M, N = _family_shapes()[name]
         _line(
             "batch/memory", family=name, scenarios=fam["count"],
             peak_shared_MB=f"{peaks['shared'] / 1e6:.1f}",
             peak_copies_MB=f"{peaks['copies'] / 1e6:.1f}",
+            peak_shared_eager_MB=f"{peaks['shared_eager'] / 1e6:.1f}",
+            peak_copies_eager_MB=f"{peaks['copies_eager'] / 1e6:.1f}",
             saved_MB=f"{(peaks['copies'] - peaks['shared']) / 1e6:.1f}",
             copies_of_the_tableau_MB=f"{(fam['count'] - 1) * M * N * 4 / 1e6:.1f}",
             same_results=True,
@@ -1400,26 +1472,28 @@ def phase_batch_memory(torch):
 
 @contextlib.contextmanager
 def _counting_chunks(calls):
-    """Count the chunk runners that solve_batch calls, by name."""
+    """Count the device steps that solve_batch runs, graphed or eager, by
+    the chunk runner each runs (a kernel-route ``_batch_step`` as
+    megakernel_run_chunk, a torch-route one and the polish chunk as
+    batched_run_chunk): through batch_driver.run_step, which every step
+    goes through (a replayed graph calls no chunk runner)."""
     from relp_tpu_torch.parallel import batch_driver
 
-    names = ("batched_run_chunk", "batched_dual_run_chunk", "megakernel_run_chunk")
-    kept = {n: getattr(batch_driver, n) for n in names}
+    for n in ("batched_run_chunk", "batched_dual_run_chunk", "megakernel_run_chunk"):
+        calls[n] = 0
 
-    def counted(name):
-        def run(*args, **kwargs):
+    def wrapper(run_step):
+        def run(body, state, inputs, **kwargs):
+            if body is batch_driver._batch_step:
+                name = "megakernel_run_chunk" if kwargs["mega"] else "batched_run_chunk"
+            else:
+                name = body.__name__
             calls[name] += 1
-            return kept[name](*args, **kwargs)
+            return run_step(body, state, inputs, **kwargs)
         return run
 
-    for n in names:
-        calls[n] = 0
-        setattr(batch_driver, n, counted(n))
-    try:
+    with _wrapped(batch_driver, "run_step", wrapper):
         yield
-    finally:
-        for n, fn in kept.items():
-            setattr(batch_driver, n, fn)
 
 
 def phase_batch_warm(torch, np):
@@ -1427,18 +1501,34 @@ def phase_batch_warm(torch, np):
     from the optimum of its unperturbed base: every scenario needs dual
     pivots.  Its pinned digest (the JAX package's cold solve), no phase 1,
     the dual chunks and the phase-2 re-verification on the batched torch
-    path, and no batched-pivot kernel launch."""
+    path, and no batched-pivot kernel launch.  The device solve's seconds
+    beside those of the same call with every step eager, made just before
+    and just after it."""
     from relp_tpu_torch.ops import batch_pivot
-    from relp_tpu_torch.simplex import SolveStatus, solve_relaxation
+    from relp_tpu_torch.parallel import solve_batch
+    from relp_tpu_torch.simplex import SolveStatus, graphs, solve_relaxation
     from relp_tpu_torch.testing import (
         WARM_FAMILY,
         WARM_FAMILY_OBJECTIVES_SHA256,
         scenario_base,
+        scenario_family,
     )
 
     gf, counts = scenario_base(WARM_FAMILY["m"], WARM_FAMILY["n"], WARM_FAMILY["seed"])
     base = solve_relaxation(gf.derive_matrix_data(counts), _batch_config())
     _check(base.status is SolveStatus.FINITE_OPTIMUM, f"warm base {base.status}")
+
+    def eager_call():  # every step eager, no certification
+        kept = graphs.DEVICE_TYPES
+        graphs.DEVICE_TYPES = ()
+        try:
+            return solve_batch(scenario_family(**WARM_FAMILY), _batch_config(),
+                               certify=False, shared_structure=True,
+                               warm_start_basis=base.basis)
+        finally:
+            graphs.DEVICE_TYPES = kept
+
+    eager_first = eager_call()
     before = (batch_pivot.LAUNCHES_RESIDENT, batch_pivot.LAUNCHES_BLOCKED)
     calls = {}
     with _counting_chunks(calls):
@@ -1457,8 +1547,20 @@ def phase_batch_warm(torch, np):
     _check(calls["megakernel_run_chunk"] == 0
            and (batch_pivot.LAUNCHES_RESIDENT, batch_pivot.LAUNCHES_BLOCKED) == before,
            "a batched-pivot kernel ran after the warm restart")
+    # The same call with every step eager (no certification) before and
+    # after it, for the device solve's seconds (the first call of a
+    # process at a shape also pays one-time work).
+    eager = eager_call()
+    for other in (eager_first, eager):
+        _check([(r.basis, r.stats.iterations, r.stats.dual_iterations) for r in other]
+               == [(r.basis, r.stats.iterations, r.stats.dual_iterations) for r in results],
+               "batch/warm: the eager steps solve differently")
     _line(
         "batch/warm", lps_with_dual_pivots=with_dual,
+        device_solve_s=f"{max(r.stats.wall_time_s for r in results):.3f}",
+        eager_before_device_solve_s=f"{max(r.stats.wall_time_s for r in eager_first):.3f}",
+        eager_device_solve_s=f"{max(r.stats.wall_time_s for r in eager):.3f}",
+        eager_same_results=True,
         max_dual_pivots=max(r.stats.dual_iterations for r in in_batch),
         phase2_pivots=sum(r.stats.iterations - r.stats.dual_iterations
                           for r in in_batch),
@@ -1469,31 +1571,41 @@ def phase_batch_warm(torch, np):
 
 
 def phase_batch_chunk(torch, np):
-    """Marginal pivots/s of the whole batch from the phase-2 start, kernel
-    vs plain path: the median of 8 interleaved (K - 10)-pivot differences,
-    with a host read of the pivot count in the timed region.  K is at most
-    150 and below the fewest phase-2 pivots of any LP (found by one kernel
-    chunk), so that every LP pivots throughout the window on both paths and
-    the plain path runs no masked no-op iterations."""
+    """Marginal pivots/s of the whole batch from the phase-2 start: the
+    kernel path, the batched torch path eager (plain) and the same chunk
+    replayed from its CUDA graph (graph, as solve_batch runs it): the median
+    of 8 interleaved (K - 10)-pivot differences, with a host read of the
+    pivot count in the timed region.  K is at most 150 and below the fewest
+    phase-2 pivots of any LP (found by one kernel chunk), so that every LP
+    pivots throughout the window on every path and the torch paths run no
+    masked no-op iterations."""
     from relp_tpu_torch.parallel.batch import batched_run_chunk, megakernel_run_chunk
+    from relp_tpu_torch.simplex import graphs
     from relp_tpu_torch.simplex.kernels import PRICE_STEEPEST
 
     cfg = _batch_config()
     tol = dict(opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol, degen_tol=cfg.feas_tol)
     rates = {}
+    paths = ("kernel", "plain", "graph")
     for name in ("resident", "blocked"):
         A, c2, cand, st = _family_phase2_start(torch, name)
         B = A.shape[0]
         start = int(st.iteration.sum())
+        captured = graphs.ChunkGraphs()
 
         def run(path, chunk):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if path == "kernel":
                 out = megakernel_run_chunk(st, A, c2, cand, chunk=chunk, **tol)
-            else:
+            elif path == "plain":
                 out = batched_run_chunk(st, A, A, c2, cand, pricing=PRICE_STEEPEST,
                                         chunk=chunk, **tol)
+            else:
+                out = captured.run(batched_run_chunk, st,
+                                   dict(A_scan=A, A_full=A, c=c2, candidate_mask=cand),
+                                   pricing=PRICE_STEEPEST, chunk=chunk, early_exit=False,
+                                   **tol)
             pivots = int(out.iteration.sum())  # the host read, inside the timing
             return time.perf_counter() - t0, pivots - start
 
@@ -1501,12 +1613,15 @@ def phase_batch_chunk(torch, np):
         fewest = int((probe.iteration - st.iteration).min())
         big = min(150, fewest - max(5, fewest // 10))
         _check(big >= 30, f"{name}: only {fewest} phase-2 pivots in the fewest LP")
-        for path in ("kernel", "plain"):  # warm up outside the timed region
+        capture_s = graphs.CAPTURE_SECONDS
+        for path in paths:  # warm up (and capture) outside the timed region
             run(path, 10)
-        est = {"kernel": [], "plain": []}
+            run(path, big)
+        capture_s = graphs.CAPTURE_SECONDS - capture_s
+        est = {path: [] for path in paths}
         counts = {}
         for rep in range(8):
-            order = ("kernel", "plain") if rep % 2 == 0 else ("plain", "kernel")
+            order = paths if rep % 2 == 0 else paths[::-1]
             for path in order:
                 t_small, i_small = run(path, 10)
                 t_big, i_big = run(path, big)
@@ -1522,12 +1637,136 @@ def phase_batch_chunk(torch, np):
             "phase-2 start",
             fewest_lp_phase2_pivots=fewest,
             kernel_pivots_10_K=counts["kernel"], plain_pivots_10_K=counts["plain"],
+            graph_pivots_10_K=counts["graph"],
             all_active=all(c == (10 * B, big * B) for c in counts.values()),
             kernel_pivots_per_s=f"{med['kernel']:.0f}",
             plain_pivots_per_s=f"{med['plain']:.0f}",
+            graph_pivots_per_s=f"{med['graph']:.0f}",
             kernel_q1_q3=quart["kernel"], plain_q1_q3=quart["plain"],
+            graph_q1_q3=quart["graph"], graph_capture_s=f"{capture_s:.2f}", **_CARD,
         )
     return rates
+
+
+# batch/graph's cases: (kind of testing.step_case, family, stop_at_zero).
+_BATCH_GRAPH_CASES = (
+    ("kernel", "resident", True), ("kernel", "resident", False),
+    ("kernel", "blocked", True), ("kernel", "blocked", False),
+    ("torch_float32", "resident", True), ("torch_float32", "resident", False),
+    ("torch_float64", "resident", True), ("torch_float64", "resident", False),
+    ("dual", "warm", None), ("polish", "resident", None),
+)
+
+
+def phase_batch_graph(torch, np):
+    """solve_batch's device steps (testing.step_case at the families' full
+    shapes, 150-pivot chunks), each from one state eagerly
+    (batch_driver.run_step) and through a CUDA graph (the cache solve_batch
+    uses is of the same class), then a second step from the first one's
+    output both ways: the kernel route at both family shapes, the batched
+    torch path in f32 and f64 (f32 scans) with and without the stop at zero,
+    the warm family's dual chunk and the f64 polish chunk.  Whether the
+    whole state and the report are bitwise equal, the batched-pivot
+    launches of a replay against an eager step, the capture's seconds
+    (warm-up included), a replay's ms and the eager step's ms.  A
+    replay's launch count is graphs.py's bookkeeping (its capture's count,
+    added at each replay); on the kernel route the batched-pivot kernels
+    that one replay ran are also counted in a profiler trace of it
+    (``traced_launches``), which must be the eager step's.  Returns
+    ["kind@shape:fields"] for the cases that differ."""
+    from relp_tpu_torch.parallel.batch_driver import _batch_step, run_step
+    from relp_tpu_torch.simplex import graphs
+    from relp_tpu_torch.testing import FAMILIES, WARM_FAMILY, step_case
+
+    families = dict(FAMILIES, warm=WARM_FAMILY)
+    chunk = _batch_config().chunk_size
+    differ = []
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def split(out):  # (state, report or None)
+        return out if body is _batch_step else (out, None)
+
+    def bits_differ(got, want):
+        (g, g_rep), (w, w_rep) = split(got), split(want)
+        fields = [f for f, x, y in zip(w._fields, g, w)
+                  if not torch.equal(x.reshape(-1).view(torch.uint8),
+                                     y.reshape(-1).view(torch.uint8))]
+        if w_rep is not None and not torch.equal(g_rep.view(torch.uint8),
+                                                 w_rep.view(torch.uint8)):
+            fields.append("report")
+        return fields
+
+    for kind, family, stop in _BATCH_GRAPH_CASES:
+        kw = {} if stop is None else dict(stop_at_zero=stop)
+        body, state, inputs, static = step_case(kind, families[family], device="cuda",
+                                                chunk=chunk, **kw)
+        cache = graphs.ChunkGraphs()
+
+        def graphed(st):
+            return cache.run(body, st, inputs, early_exit=False, **static)
+
+        def eager(st):
+            return run_step(body, st, inputs, graphed=False, **static)
+
+        before = _launch_counts()
+        want, eager_ms = timed(lambda: eager(state))
+        middle = _launch_counts()
+        capture_s = graphs.CAPTURE_SECONDS
+        first, _first_ms = timed(lambda: graphed(state))
+        capture_s = graphs.CAPTURE_SECONDS - capture_s
+        at_replay = _launch_counts()
+        again, replay_ms = timed(lambda: graphed(state))
+        after = _launch_counts()
+        want2 = eager(split(want)[0])
+        got2 = graphed(split(again)[0])
+        torch.cuda.synchronize()
+        fields = sorted(set(bits_differ(first, want) + bits_differ(again, want)
+                            + bits_differ(got2, want2)))
+        kernels = ("batched_pivot_chunk", "batched_pivot_chunk_blocked")
+        eager_launches = [middle[k] - before[k] for k in kernels]
+        replay_launches = [after[k] - at_replay[k] for k in kernels]
+        if replay_launches != eager_launches:
+            fields.append("launches")
+        traced = "n/a"
+        if kind == "kernel":
+            traced = _kernel_events(torch, lambda: graphed(state), "batch_pivot_kernel")
+            if traced != sum(eager_launches):
+                fields.append("traced_launches")
+        A = inputs.get("A", inputs.get("A_full"))
+        shape = "x".join(map(str, A.shape))
+        if fields:
+            differ.append(f"{kind}@{shape}:{','.join(fields)}")
+        pivots = int((split(want2)[0].iteration - state.iteration).sum())
+        _line("batch/graph", kind=kind, family=family, shape=shape,
+              dtype=str(A.dtype).replace("torch.", ""),
+              scan_dtype=str(inputs["A_scan"].dtype).replace("torch.", ""),
+              stop_at_zero=stop if stop is not None else "n/a", chunk=chunk,
+              pivots_two_steps=pivots, bitwise_equal=not fields,
+              differing_fields=",".join(fields) or "none",
+              launches_eager="/".join(map(str, eager_launches)),
+              launches_replay="/".join(map(str, replay_launches)),
+              traced_launches=traced, capture_s=f"{capture_s:.3f}", replay_ms=f"{replay_ms:.3f}",
+              eager_ms=f"{eager_ms:.3f}", **_CARD)
+    return differ
+
+
+def _kernel_events(torch, fn, name: str) -> int:
+    """The device kernels whose name holds ``name`` in a profiler trace of
+    ``fn`` (the raw Kineto events, as in _device_busy)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and name in e.name())
 
 
 def _launch_counts():
@@ -1541,8 +1780,10 @@ def _launch_counts():
         "batched_pivot_chunk": batch_pivot.LAUNCHES_RESIDENT,
         "batched_pivot_chunk_blocked": batch_pivot.LAUNCHES_BLOCKED,
         **{f"probe_dot_{kind}": probe.LAUNCHES[kind] for kind in probe.KINDS},
-        # DenseEngine's captured chunks: captures/replays/capture seconds.
+        # The captured chunks and steps: captures/replays/capture seconds,
+        # and the entries the process-wide cache of steps evicted.
         "graphs": _graph_fields(_graph_counts()),
+        "graph_evictions": _graph_counts()["evictions"],
     }
 
 
@@ -1557,7 +1798,7 @@ def _zero_launch_counts():
     batch_pivot.LAUNCHES_RESIDENT = batch_pivot.LAUNCHES_BLOCKED = 0
     for kind in probe.KINDS:
         probe.LAUNCHES[kind] = 0
-    graphs.CAPTURES = graphs.REPLAYS = 0
+    graphs.CAPTURES = graphs.REPLAYS = graphs.EVICTIONS = 0
     graphs.CAPTURE_SECONDS = 0.0
 
 
@@ -1647,40 +1888,59 @@ def _wrapped(module, name, wrapper):
         setattr(module, name, kept)
 
 
+def _solves_digest(results) -> str:
+    """sha256 of each result's status, basis, pivots and dual pivots."""
+    return hashlib.sha256(repr([
+        (r.status.value, tuple(r.basis or ()), r.stats.iterations,
+         r.stats.dual_iterations) for r in results]).encode()).hexdigest()[:16]
+
+
 @contextlib.contextmanager
 def _counting_solves(tally):
     """Count the LP solves that branch & bound asks for through the module
     attributes its lazy imports read: the solve_batch calls, their LPs and
     single-LP fallbacks (``stats.batch_fallback``), the single-LP solves
-    outside a batch, and the certification time the returned results
-    report (``stats.certify_time_s``).  ``tally["inside"]`` is the depth of
-    solve_batch calls in progress."""
+    outside a batch, the certification time the returned results report
+    (``stats.certify_time_s``) and the seconds inside those calls
+    (``lp_s``); ``tally["waves"]`` lists each call in order as (LPs,
+    ``_solves_digest`` of its results), ``tally["ends"]`` the clock at its
+    end (``t0`` at the start).  ``tally["inside"]`` is the depth
+    of solve_batch calls in progress."""
     from relp_tpu_torch.parallel import batch_driver
     from relp_tpu_torch.simplex import driver
 
     tally.update(batched_solves=0, batched_lps=0, fallbacks=0, single_solves=0,
-                 certify_s=0.0, inside=0)
+                 certify_s=0.0, lp_s=0.0, inside=0, waves=[], ends=[],
+                 t0=time.perf_counter())
 
     def batch(solve_batch):
         def run(providers, *args, **kwargs):
             tally["inside"] += 1
+            t0 = time.perf_counter()
             try:
                 results = solve_batch(providers, *args, **kwargs)
             finally:
                 tally["inside"] -= 1
+            tally["lp_s"] += time.perf_counter() - t0
             tally["batched_solves"] += 1
             tally["batched_lps"] += len(results)
             tally["fallbacks"] += sum(bool(r.stats.batch_fallback) for r in results)
             tally["certify_s"] += sum(r.stats.certify_time_s for r in results)
+            tally["waves"].append((len(results), _solves_digest(results)))
+            tally["ends"].append(time.perf_counter())
             return results
         return run
 
     def single(solve_relaxation):
         def run(*args, **kwargs):
+            t0 = time.perf_counter()
             result = solve_relaxation(*args, **kwargs)
             if not tally["inside"]:  # a batch's fallbacks count with the batch
+                tally["lp_s"] += time.perf_counter() - t0
                 tally["single_solves"] += 1
                 tally["certify_s"] += result.stats.certify_time_s
+                tally["waves"].append((1, _solves_digest([result])))
+                tally["ends"].append(time.perf_counter())
             return result
         return run
 
@@ -1717,6 +1977,41 @@ def _keeping_inputs(module, name, kept, when=lambda *args: True):
         return run
 
     return _wrapped(module, name, wrapper)
+
+
+@contextlib.contextmanager
+def _keeping_kernel_inputs(kept, when):
+    """The inputs of a batched-pivot kernel's launch in a real step of
+    solve_batch, replayed or eager, kept in ``kept[name]`` as (args,
+    kwargs) of the kernel's wrapper: the first kernel-route ``_batch_step``
+    whose kernel is ``name`` (the tableau's shape decides) and for whose
+    tableau ``when[name](A)`` holds.  A step launches its kernel first, on
+    the step's own state and inputs, so they are the launch's; read at
+    batch_driver.run_step, every step's call, not at the wrapper, which a
+    graph calls only at its warm-up (a one-pivot chunk) and capture."""
+    from relp_tpu_torch.parallel import batch_driver
+    from relp_tpu_torch.parallel.batch import _megakernel_variant
+
+    names = {"resident": "batched_pivot_chunk", "blocked": "batched_pivot_chunk_blocked"}
+
+    def wrapper(run_step):
+        def run(body, state, inputs, **kwargs):
+            if body is batch_driver._batch_step and kwargs["mega"]:
+                A = inputs["A"]
+                name = names[_megakernel_variant(A.shape)]
+                if name not in kept and when[name](A):
+                    keep = lambda t: t.clone() if t.is_contiguous() else t  # noqa: E731
+                    args = (A, inputs["c"], inputs["cand"], state.Binv, state.xB,
+                            state.pi, state.basis, state.in_basis, state.gamma,
+                            state.status, state.iteration, state.degen_count)
+                    kept[name] = (tuple(keep(a) for a in args), {
+                        k: kwargs[k] for k in ("chunk", "opt_tol", "pivot_tol",
+                                               "degen_tol", "stop_at_zero")})
+            return run_step(body, state, inputs, **kwargs)
+        return run
+
+    with _wrapped(batch_driver, "run_step", wrapper):
+        yield
 
 
 def _highs_mip(np, W, capacity, profit):
@@ -1760,11 +2055,13 @@ def _solve_mknap(torch, np, label, cfg, min_in_batch, tally, **limits):
     from relp_tpu_torch.testing import MKNAP, mknap, mknap_data
 
     torch.cuda.synchronize()
+    graph_counts = _graph_counts()
     t0 = time.perf_counter()
     with _counting_solves(tally):
         mip = solve_mip(mknap(**MKNAP), cfg, **limits)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    graph_counts = {k: v - graph_counts[k] for k, v in _graph_counts().items()}
     _check(tally["batched_solves"] > 0 and tally["single_solves"] > 0,
            f"{label}: counted no solves ({tally}): the counting missed the path")
     in_batch = tally["batched_lps"] - tally["fallbacks"]
@@ -1816,7 +2113,10 @@ def _solve_mknap(torch, np, label, cfg, min_in_batch, tally, **limits):
         single_solves=tally["single_solves"],
         wall_s=f"{wall:.3f}", certify_s=f"{tally['certify_s']:.3f}",
         certify_share=f"{tally['certify_s'] / wall:.3f}",
-        **{k: tally[k] for k in ("blocked_wave_after_nodes",) if k in tally},
+        device_solve_s=f"{tally['lp_s'] - tally['certify_s']:.3f}",
+        bnb_host_s=f"{wall - tally['lp_s']:.3f}",
+        graphs=_graph_fields(graph_counts), graph_evictions=graph_counts["evictions"],
+        **_step_cache_fields(), **{k: tally[k] for k in ("blocked_wave_after_nodes",) if k in tally},
     )
     return mip
 
@@ -1846,7 +2146,6 @@ def phase_mip_real(torch, np):
     holds each kernel against its plain version on them (the scan's also
     timed), to run once the path's launches are read."""
     from relp_tpu_torch.config import SolverConfig
-    from relp_tpu_torch.ops import batch_pivot
     from relp_tpu_torch.simplex import kernels
 
     tally, kept = {}, {}
@@ -1868,9 +2167,8 @@ def phase_mip_real(torch, np):
             tally["blocked_wave_after_nodes"] = outer.f_locals["result"].nodes_solved
         return True
 
-    with _keeping_inputs(batch_pivot, "batched_pivot_chunk", kept, when=wave), \
-            _keeping_inputs(batch_pivot, "batched_pivot_chunk_blocked", kept,
-                            when=blocked_wave), \
+    with _keeping_kernel_inputs(kept, {"batched_pivot_chunk": wave,
+                                       "batched_pivot_chunk_blocked": blocked_wave}), \
             _keeping_inputs(kernels, "fused_price_scan", kept,
                             when=lambda *_args: tally.get("inside", 0) > 0):
         _solve_mknap(torch, np, "mip/real", SolverConfig(), _MIN_IN_BATCH_F32,
@@ -1913,13 +2211,14 @@ def _replay_mip_kernels(torch, kept):
     return errors
 
 
-def phase_mip_real64(torch, np):
+def phase_mip_real64(torch, np, found):
     """The same knapsack to a proven optimum: solve_mip with --dtype float64
     and the CLI's default 16 nodes a wave (f64 node LPs pass the batch
     driver's residual gates, so the waves stay in the batch).  Besides
     _solve_mknap's checks: optimal and certified, the objective HiGHS's
     optimum, the best bound equal to it, nearly every node LP solved in the
-    batch."""
+    batch.  Its LP solves, call by call, are left in ``found["tally"]``
+    for mip/real64/eager."""
     from relp_tpu_torch.config import SolverConfig
     from relp_tpu_torch.simplex import SolveStatus
 
@@ -1950,12 +2249,58 @@ def phase_mip_real64(torch, np):
            f"mip/real64: {tally['fallbacks']} of {tally['batched_lps']} node LPs "
            "left the batch")
     _check(kept, "mip/real64 never called the scan")
+    found["tally"] = tally
 
     def replays():  # the first scan of each dtype (f32 node LPs, f64 polish)
         out = [_replay_scan(torch, "mip64/kernel", args) for args in kept.values()]
         return max(err for err, _t in out), out[-1][1]
 
     return replays
+
+
+# mip/real64/eager's node limit: about a fifth of mip/real64's search
+# (1,969 nodes on an H100; PERF.md).
+_MIP64_EAGER_NODES = 400
+
+
+def phase_mip_real64_eager(torch, np, found):
+    """mip/real64 again with every captured step and chunk eager
+    (graphs.DEVICE_TYPES emptied), cut at _MIP64_EAGER_NODES nodes, with
+    _solve_mknap's checks: its LP solves, call by call (solve_batch waves
+    and single-LP solves), must be mip/real64's, each call's results by the
+    digest of every LP's status, basis, pivots and dual pivots; one call
+    may be a narrower wave than the graphed run's (the cut: a wave takes
+    nodes while they stay under the limit), the strong branching after it
+    is that of the same nodes.  The seconds of the same calls in the graphed
+    run beside the eager ones."""
+    from relp_tpu_torch.config import SolverConfig
+    from relp_tpu_torch.simplex import graphs
+
+    graphed = found["tally"]
+    kept = graphs.DEVICE_TYPES
+    graphs.DEVICE_TYPES = ()
+    tally = {}
+    try:
+        mip = _solve_mknap(torch, np, "mip/real64/eager", SolverConfig(dtype="float64"), 1,
+                           tally, batch_width=16, node_limit=_MIP64_EAGER_NODES,
+                           time_limit_s=300)
+    finally:
+        graphs.DEVICE_TYPES = kept
+    eager, waves = tally["waves"], graphed["waves"]
+    differ = [i for i, (e, g) in enumerate(zip(eager, waves)) if e != g]
+    cut = [i for i in differ if eager[i][0] < waves[i][0]]
+    _check(len(eager) <= len(waves) and differ == cut and len(cut) <= 1,
+           f"mip/real64/eager: LP-solve calls {differ[:5]} of {len(eager)} differ from "
+           f"mip/real64's ({[(eager[i], waves[i]) for i in differ[:2]]})")
+    last = len(eager) - 1
+    _line("mip/real64/eager", nodes_solved=mip.nodes_solved, calls=len(eager),
+          graphed_calls=len(waves), lp_solves=sum(k for k, _d in eager),
+          same_calls=len(eager) - len(cut),
+          cut_wave=f"call {cut[0]}: {eager[cut[0]][0]} of {waves[cut[0]][0]} LPs"
+          if cut else "none",
+          eager_prefix_s=f"{tally['ends'][last] - tally['t0']:.3f}",
+          graphed_prefix_s=f"{graphed['ends'][last] - graphed['t0']:.3f}",
+          eager_lp_s=f"{tally['lp_s']:.3f}", **_CARD)
 
 
 def _reconstructed_objective(gf, md, result):
@@ -2729,14 +3074,15 @@ def phase_other_modes(torch, np, device, knap6_pivots, main_result):
     from relp_tpu_torch.config import SolverConfig
     from relp_tpu_torch.simplex import engine
 
-    by_path, replays, window, lu, df32 = {}, {}, {}, {}, {}
+    by_path, replays, window, lu, df32, mip64 = {}, {}, {}, {}, {}, {}
     for path, run in (
         ("main/bf16", lambda: phase_main_real(
             torch, np, "main/bf16", "bfloat16", main_result,
             max_iterations=_MAIN_BF16_MAX_ITERATIONS)[1]),
         ("mip/small", lambda: phase_mip_small(knap6_pivots)),
         ("mip/real", lambda: phase_mip_real(torch, np)),
-        ("mip/real64", lambda: phase_mip_real64(torch, np)),
+        ("mip/real64", lambda: phase_mip_real64(torch, np, mip64)),
+        ("mip/real64/eager", lambda: phase_mip_real64_eager(torch, np, mip64)),
         ("first_order/real", lambda: phase_first_order_real(torch)),
         ("first_order/pdhg", lambda: phase_first_order_pdhg(torch, np, device)),
         ("lu/real", lambda: phase_lu_real(torch, lu)),
@@ -2834,6 +3180,8 @@ def main() -> int:
     batch_pivot.LAUNCHES_RESIDENT = batch_pivot.LAUNCHES_BLOCKED = 0
     _timed("batch/warm", phase_batch_warm, torch, np)
     _timed("batch/chunk", phase_batch_chunk, torch, np)
+    differ = _timed("batch/graph", phase_batch_graph, torch, np)
+    _check(not differ, f"batch/graph: graphed steps differ from eager ones: {differ}")
 
     by_path, mip_errors, scans = phase_other_modes(
         torch, np, device, knap6_pivots, main_result)

@@ -119,10 +119,12 @@ def _lib() -> ctypes.CDLL:
 def batched_pivot_chunk_reference(
     A, c, cand, Binv, xB, pi, basis, in_basis, gamma, status, iteration,
     degen, *, chunk: int, opt_tol: float, pivot_tol: float, degen_tol: float,
-    stop_at_zero: bool = False,
+    stop_at_zero: bool = False, early_exit: Optional[bool] = None,
 ):
     """Plain PyTorch version: ``batched_run_chunk`` with steepest pricing from
-    the state the arguments give (obj = cB . xB, as the kernels compute it)."""
+    the state the arguments give (obj = cB . xB, as the kernels compute it).
+    ``early_exit`` as in ``batched_run_chunk`` (False inside a captured
+    step: the same result, no host read)."""
     from relp_tpu_torch.parallel.batch import batched_run_chunk
     from relp_tpu_torch.simplex.kernels import PRICE_STEEPEST
     from relp_tpu_torch.simplex.state import SimplexState
@@ -138,7 +140,7 @@ def batched_pivot_chunk_reference(
     out = batched_run_chunk(
         state, A, A, c, cand, pricing=PRICE_STEEPEST, chunk=chunk,
         opt_tol=opt_tol, pivot_tol=pivot_tol, degen_tol=degen_tol,
-        stop_at_zero=stop_at_zero,
+        stop_at_zero=stop_at_zero, early_exit=early_exit,
     )
     return (out.Binv, out.xB, out.pi, out.basis, out.in_basis, out.gamma,
             out.status, out.iteration, out.degen_count)
@@ -232,7 +234,7 @@ def _launch(resident, A, c, cand, Binv, xB, pi, basis, in_basis, gamma,
 
 
 def _run(resident, args, chunk, opt_tol, pivot_tol, degen_tol, stop_at_zero,
-         noise_eps, hi_scan):
+         noise_eps, hi_scan, early_exit):
     if noise_eps or hi_scan:
         raise ValueError(
             "batched_pivot_chunk: only the unguarded semantics (noise_eps=0, "
@@ -242,7 +244,7 @@ def _run(resident, args, chunk, opt_tol, pivot_tol, degen_tol, stop_at_zero,
     if A.device.type == "cpu":
         return batched_pivot_chunk_reference(
             *args, chunk=chunk, opt_tol=opt_tol, pivot_tol=pivot_tol,
-            degen_tol=degen_tol, stop_at_zero=stop_at_zero,
+            degen_tol=degen_tol, stop_at_zero=stop_at_zero, early_exit=early_exit,
         )
     if A.device.type != "cuda":
         raise ValueError(f"batched_pivot_chunk: unsupported device {A.device}")
@@ -254,20 +256,24 @@ def batched_pivot_chunk(
     A, c, cand, Binv, xB, pi, basis, in_basis, gamma, status, iteration,
     degen, *, chunk: int, opt_tol: float, pivot_tol: float, degen_tol: float,
     stop_at_zero: bool = False, noise_eps: float = 0.0, hi_scan: bool = False,
+    early_exit: Optional[bool] = None,
 ):
     """Up to ``chunk`` steepest-edge pivots of every LP, inverse resident in
     shared memory.  ``noise_eps`` and ``hi_scan`` are the JAX function's;
-    only 0 and False are taken."""
+    only 0 and False are taken.  ``early_exit`` is the plain version's (CPU
+    tensors), as in ``batched_run_chunk``; the kernel reads nothing on the
+    host."""
     return _run(True, (A, c, cand, Binv, xB, pi, basis, in_basis, gamma,
                        status, iteration, degen),
                 chunk, opt_tol, pivot_tol, degen_tol, stop_at_zero,
-                noise_eps, hi_scan)
+                noise_eps, hi_scan, early_exit)
 
 
 def batched_pivot_chunk_blocked(
     A, c, cand, Binv, xB, pi, basis, in_basis, gamma, status, iteration,
     degen, *, chunk: int, opt_tol: float, pivot_tol: float, degen_tol: float,
     stop_at_zero: bool = False, noise_eps: float = 0.0, hi_scan: bool = False,
+    early_exit: Optional[bool] = None,
 ):
     """As :func:`batched_pivot_chunk`, with the inverse in device memory:
     for M whose (M, M) inverse does not fit a block's shared memory.  Its
@@ -276,4 +282,4 @@ def batched_pivot_chunk_blocked(
     return _run(False, (A, c, cand, Binv, xB, pi, basis, in_basis, gamma,
                         status, iteration, degen),
                 chunk, opt_tol, pivot_tol, degen_tol, stop_at_zero,
-                noise_eps, hi_scan)
+                noise_eps, hi_scan, early_exit)

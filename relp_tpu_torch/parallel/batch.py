@@ -8,8 +8,8 @@ package writes this as ``jax.vmap`` of the single-LP iteration inside a
 ``take_along_dim`` and written with ``torch.where`` against an index, so no
 tensor is updated in place.  A chunk is a fixed number of iterations with no
 host read on CUDA, as in ``relp_tpu_torch.simplex.kernels.run_chunk``; on the
-CPU the loop stops once no LP is active.  At B=1 the batched iteration is the
-single-LP ``_iteration``.
+CPU the loop stops once no LP is active (``early_exit``).  At B=1 the
+batched iteration is the single-LP ``_iteration``.
 
 ``megakernel_run_chunk`` runs a chunk through the hand-written batched-pivot
 kernels of ``relp_tpu_torch.ops.batch_pivot`` (one CUDA block per LP).
@@ -356,6 +356,7 @@ def batched_run_chunk(
     feas_tol: float = 1e-9,
     noisy_scan: bool = False,
     shard=None,
+    early_exit: Optional[bool] = None,
 ) -> SimplexState:
     """Advance every LP in the batch by up to ``chunk`` pivots.
 
@@ -364,12 +365,16 @@ def batched_run_chunk(
     inverse on the device every ``refactor_period`` loop steps (batched
     Newton-Schulz with ``max(2, newton_steps + 1)`` steps, the xB clamp, and
     for steepest edge fresh weights), as the JAX package does.
+    ``early_exit`` leaves the loop at the first step with no active LP, a
+    host read (default: on the CPU); without it the loop runs all ``chunk``
+    steps, the inactive ones masked no-ops, as a captured chunk must.
     """
     c_scan = c.to(A_scan.dtype)
     s = _refresh_d(
         batch_state._replace(inner=torch.zeros_like(batch_state.inner)), A_scan, c_scan
     )
-    on_cpu = A_scan.device.type == "cpu"
+    if early_exit is None:
+        early_exit = A_scan.device.type == "cpu"
 
     def active_mask(s):
         active = s.status == RUNNING
@@ -396,11 +401,11 @@ def batched_run_chunk(
         active = active_mask(s)
         # With a shard every rank holds the same LPs' replicated status and
         # objective, so every rank leaves the loop at the same step.
-        if on_cpu and not bool(active.any()):
+        if early_exit and not bool(active.any()):
             break
         if refactor_period > 0 and k > 0 and k % refactor_period == 0:
             fresh = refresh(s)
-            if on_cpu:
+            if early_exit:
                 s = fresh
             else:
                 # The JAX loop has ended once no LP is active; without a host
@@ -430,20 +435,23 @@ def batched_dual_run_chunk(
     pivot_tol: float,
     feas_tol: float,
     noisy_scan: bool = False,
+    early_exit: Optional[bool] = None,
 ) -> SimplexState:
     """Advance every LP by up to ``chunk`` dual pivots (lockstep, per-LP
     freezing): the batched warm restart of a perturbed-rhs family from one
     dual-feasible basis.  Terminal statuses: OPTIMAL (primal feasibility
     restored) or INFEASIBLE (dual ray; solve_batch sends those to the
-    single-LP fallback for the exact Farkas certificate)."""
+    single-LP fallback for the exact Farkas certificate).  ``early_exit``
+    as in :func:`batched_run_chunk`."""
     c_scan = c.to(A_scan.dtype)
     s = _refresh_d(
         batch_state._replace(inner=torch.zeros_like(batch_state.inner)), A_scan, c_scan
     )
-    on_cpu = A_scan.device.type == "cpu"
+    if early_exit is None:
+        early_exit = A_scan.device.type == "cpu"
     for _ in range(chunk):
         active = s.status == RUNNING
-        if on_cpu and not bool(active.any()):
+        if early_exit and not bool(active.any()):
             break
         s = _batched_dual_iteration(
             s, A_scan, A_full, c, candidate_mask, active,
@@ -463,11 +471,13 @@ def megakernel_run_chunk(
     pivot_tol: float,
     degen_tol: float,
     stop_at_zero: bool = False,
+    early_exit: Optional[bool] = None,
 ) -> SimplexState:
     """Advance the batch by up to ``chunk`` pivots through the batched-pivot
     kernel (``relp_tpu_torch.ops.batch_pivot``): one CUDA block per LP runs
     the whole chunk, instead of the batched small-op chain.  CPU tensors
-    take the kernels' plain version.
+    take the kernels' plain version (``early_exit`` is its loop's, as in
+    :func:`batched_run_chunk`).
 
     Same contract as :func:`batched_run_chunk` in its production
     configuration (f32, same-precision scans, steepest edge).  As in the JAX
@@ -493,7 +503,7 @@ def megakernel_run_chunk(
         batch_state.in_basis, batch_state.gamma, batch_state.status,
         batch_state.iteration, batch_state.degen_count,
         chunk=chunk, opt_tol=opt_tol, pivot_tol=pivot_tol,
-        degen_tol=degen_tol, stop_at_zero=stop_at_zero,
+        degen_tol=degen_tol, stop_at_zero=stop_at_zero, early_exit=early_exit,
     )
     cB = torch.take_along_dim(c, basis.to(torch.int64), dim=1)
     obj = (cB * xB).sum(dim=1)

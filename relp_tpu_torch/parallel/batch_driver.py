@@ -20,8 +20,20 @@ Differences from the JAX driver:
   all-reduced over the world, and every rank returns the whole list.  As
   in the JAX package, the batched-pivot kernels and the dual warm restart
   stay off under a mesh.
-* There is no persistent compile cache to enable: the port runs eagerly,
-  and its kernel library is cached by source hash.
+* There is no persistent compile cache to enable: the port compiles no
+  program, and its kernel library is cached by source hash.  What the JAX
+  package jits at module scope, the port captures once a process: on a
+  card with no mesh, ``_batch_step`` (both routes), the dual chunk and the
+  polish chunk replay CUDA graphs from ``graphs.steps()``, the process-wide
+  cache bounded by bytes, so that repeated calls of one shape (a MIP's
+  node waves) capture each once; a step runs eagerly at its key's first
+  use, so that a one-off call pays no capture for a step it takes once.
+  The cache keeps a shared tableau as one (M, N) slice and reads B stacked
+  tableaus in place, releasing them when the call's steps are done.  The
+  batched refactorization (``_v_refactor``: torch's batched ``inv_ex``)
+  stays eager on every device: at the families' shapes torch runs it
+  through MAGMA, which a capture refuses.  The CPU and a mesh run every
+  step eagerly.
 * The report of each chunk is the host's one read per chunk; the chunk
   itself reads nothing on CUDA.
 """
@@ -42,6 +54,7 @@ from relp_tpu_torch.exact.certify import certify_and_repair
 from relp_tpu_torch.linalg.device import pad_to_multiple
 from relp_tpu_torch.linalg.sparse import SparseVector
 from relp_tpu_torch.parallel.batch import (
+    _megakernel_variant,
     _v_gamma,
     _v_newton,
     _v_refactor,
@@ -64,20 +77,38 @@ from relp_tpu_torch.utils.logging import get_logger
 _log = get_logger("batch")
 
 
+def run_step(body, state, inputs, *, graphed: bool, must_launch=None, **static):
+    """``body(state, **inputs, **static)``: replayed from the process-wide
+    cache of captured steps when ``graphed`` (a card, no mesh), with the
+    fixed-length loop (``early_exit=False``); else run eagerly.  A stacked
+    tableau (three dimensions, batch stride not 0) is read in place, not
+    copied into the cache; ``solve_batch`` releases it when its steps are
+    done.  Every device step of ``solve_batch`` goes through here."""
+    if graphed:
+        stacked = tuple(role for role, x in inputs.items()
+                        if x.dim() == 3 and x.stride(0) != 0)
+        return graphs.steps().run(body, state, inputs, must_launch=must_launch,
+                                  bound=stacked, early_exit=False, **static)
+    return body(state, **inputs, **static)
+
+
 def _batch_step(
     batch, A_scan, A, b, c, cand, *,
     pricing, chunk, opt_tol, pivot_tol, degen_tol, noisy_scan,
     stop_at_zero, hi_scan, mega,
     newton_steps, feas_tol, refactor_period, use_steepest, shard=None,
+    early_exit=None,
 ):
     """One chunk of pivots, then the Newton-Schulz refresh and the gamma
     refresh, returning (new batch, (4, B) report of status, obj, iteration
-    and re-arm flags): the host reads only the report."""
+    and re-arm flags): the host reads only the report.  ``early_exit`` as
+    in ``batched_run_chunk`` (on the kernel route, the plain version's)."""
     it_before = batch.iteration
     if mega:
         batch = megakernel_run_chunk(
             batch, A, c, cand, stop_at_zero=stop_at_zero, chunk=chunk,
             opt_tol=opt_tol, pivot_tol=pivot_tol, degen_tol=degen_tol,
+            early_exit=early_exit,
         )
     else:
         batch = batched_run_chunk(
@@ -87,6 +118,7 @@ def _batch_step(
             refactor_period=refactor_period,
             b=b if refactor_period > 0 else None,
             newton_steps=newton_steps, feas_tol=feas_tol, shard=shard,
+            early_exit=early_exit,
         )
     rearm = torch.zeros_like(batch.status, dtype=torch.bool)
     if noisy_scan and not hi_scan:
@@ -274,6 +306,7 @@ def solve_batch(
     use_megakernel = megakernel_applicable(
         A, cfg.dtype, cfg.scan_dtype, pricing, mesh
     )
+    graphed = mesh is None and device.type in graphs.DEVICE_TYPES
     if not use_megakernel:
         _log.info(
             "no batched-pivot kernel takes %s (dtype %s, scan %s, pricing "
@@ -282,8 +315,10 @@ def solve_batch(
         )
 
     def step(batch, c, stop_at_zero, hi_scan, mega):
-        return _batch_step(
-            batch, A_scan, A, b, c, cand,
+        return run_step(
+            _batch_step, batch, dict(A_scan=A_scan, A=A, b=b, c=c, cand=cand),
+            graphed=graphed,
+            must_launch=_megakernel_variant(A.shape) if mega else None,
             stop_at_zero=stop_at_zero, hi_scan=hi_scan, mega=mega,
             newton_steps=newton, feas_tol=cfg.feas_tol,
             refactor_period=in_chunk_period,
@@ -405,8 +440,10 @@ def solve_batch(
                 )
             return batch, None
         for _ in range(max_chunks):
-            wb = batched_dual_run_chunk(
-                wb, A_scan, A, c2, cand,
+            wb = run_step(
+                batched_dual_run_chunk, wb,
+                dict(A_scan=A_scan, A_full=A, c=c2, candidate_mask=cand),
+                graphed=graphed,
                 chunk=cfg.chunk_size,
                 opt_tol=cfg.opt_tol,
                 pivot_tol=cfg.pivot_tol,
@@ -468,7 +505,10 @@ def solve_batch(
         polish = np.where(status == OPTIMAL, RUNNING, status)
         batch = with_status(batch, polish)
         batch, _ = refactor(batch, c2)
-        batch = batched_run_chunk(batch, A, A, c2, cand, shard=shard, **kwargs)
+        batch = run_step(
+            batched_run_chunk, batch, dict(A_scan=A, A_full=A, c=c2, candidate_mask=cand),
+            graphed=graphed, shard=shard, **kwargs,
+        )
 
     # Final from-scratch refactorization: extraction never trusts a carried
     # inverse; the residual and the basis-exact xB gate send bad LPs to the
@@ -476,6 +516,8 @@ def solve_batch(
     _t3 = time.time()
     batch, final_residual = refactor(batch, c2)
     final_residual = final_residual.cpu().numpy()
+    if graphed:  # the steps that read a stacked tableau in place go with it
+        graphs.steps().release(A, A_scan)
     _t("final refactor", _t3)
 
     wall = time.time() - t0

@@ -2,8 +2,13 @@
 package's device loops, the dense ``run_chunk`` and ``dual_run_chunk``
 (``relp_tpu/simplex/kernels.py:327-386`` and ``:502-536``), the LU chunk
 (``relp_tpu/simplex/lu.py:266-306``), the df32 chunk
-(``relp_tpu/simplex/df_kernels.py:237-281``) and the PDHG chunk
-(``relp_tpu/firstorder/pdhg.py:111-149``).
+(``relp_tpu/simplex/df_kernels.py:237-281``), the PDHG chunk
+(``relp_tpu/firstorder/pdhg.py:111-149``), and the batch driver's steps
+and chunks: its module-level ``_batch_step`` (a chunk of pivots, through
+the batched-pivot kernels or the batched torch path, and the Newton and
+gamma refreshes; ``relp_tpu/parallel/batch_driver.py:89-97``) and the
+batched dual and polish chunks (``relp_tpu/parallel/batch.py:154-158``,
+``:213-221``).
 
 JAX compiles a chunk once per value of its static arguments and per
 argument shapes, and runs it as one device program, a ``lax.while_loop``
@@ -21,18 +26,27 @@ and order.
 A body is called ``body(state, **inputs, **static)``: ``state`` is a
 ``NamedTuple`` of tensors, ``inputs`` a dict of named tensors, ``static``
 the Python values the body's control flow reads (every one has ``chunk``,
-the iteration count), and it returns a ``NamedTuple`` of tensors.
+the iteration count), and it returns a ``NamedTuple`` of tensors (the
+batch step: that and its report, a tensor).
 
 * **Key**: the body, the state's type, the static arguments, the shape,
-  dtype and device of every state field and input, and which inputs are
-  one tensor (the dense chunk's A_scan is A_full): what
+  dtype, device and strides of every state field and input, which
+  inputs are one tensor (the dense chunk's A_scan is A_full) and the
+  identity of an input read in place (``bound``, below): what
   ``static_argnames`` and the argument shapes key in JAX.  The LU chunk's
   static ``eta0``, the ring's fill at chunk entry, sets how many ring slots
   each eta loop runs, so an LU chunk is captured once per ``eta0`` seen.
 * **Inputs**: static buffers, shared by the entries of one cache by role,
-  shape and dtype.  The state is copied in before every replay; an input
-  only when the tensor is not the one last copied (its identity, data
-  pointer and ``_version``).
+  shape, dtype and strides, each laid out as its tensor is.  A tensor
+  expanded over its leading dimension (stride 0: ``solve_batch``'s one
+  shared tableau) gets one buffer of a single slice, expanded as the
+  tensor is, so that a (B, M, N) tableau stays M N elements.  The state
+  is copied in before every replay; an input only when the tensor is not
+  the one last copied (its identity, data pointer and ``_version``).  An
+  input named in ``bound`` (``solve_batch``'s B stacked tableaus) gets no
+  buffer: the graph reads the caller's tensor in place, the key holds
+  that tensor's identity, the entry holds the tensor, and ``release``
+  drops the entry when the caller is done with it.
 * **Outputs**: cloned out after every replay, so that a state the caller
   keeps (the driver's chunk-entry state, which it rolls back to) is never
   overwritten by a later replay.  A body that writes a state field in
@@ -44,20 +58,35 @@ the iteration count), and it returns a ``NamedTuple`` of tensors.
   happen outside the capture; the bodies have no branch that depends on
   the iteration, so one iteration runs every op of the chunk.  The warm-up
   and the capture are timed together.
-* **Launch counts**: the scan wrapper counts a launch when its Python runs,
-  which happens at capture only.  An entry records what its capture
-  counted, and each replay adds that, so ``price_scan.LAUNCHES`` stays what
-  eager execution gives; the warm-up's and the capture's own counts are
-  taken back.  A steepest-edge capture of a body that prices through the
-  scan kernel (the dense primal and the df32 chunk) on CUDA that counted no
-  scan launch raises.
+* **Launch counts**: a kernel wrapper counts a launch when its Python
+  runs, which happens at capture only.  An entry records what its capture
+  counted on every counter (the scan's, in all and by dtype, and the two
+  batched-pivot kernels'), and each replay adds that, so every counter
+  stays what eager execution gives; the warm-up's and the capture's own
+  counts are taken back.  A replay's count is this bookkeeping, not an
+  observation of the replay: what shows that a replay ran the kernel is
+  its output, equal to the eager step's bit for bit, or a profiler trace
+  of the replay.  A capture on CUDA of a body that must launch a kernel
+  (``must_launch``: the scan for a steepest-edge dense primal or df32
+  chunk, the batched-pivot kernel of the kernel route's step) that
+  counted no launch of it raises.
 * **Lifetime**: a cache belongs to one engine, and so to one solve of one
   rung (or to one ``pdhg_solve`` call); its graphs, their memory pools and
   its static buffers go with it.  Inside ``shared(cache)`` every engine
   takes that one cache instead: ``solve_batch`` gives its single-LP
   fallbacks one cache for the call, so that a wave of node LPs of one
   shape captures each kind of chunk once, not once a node LP; it goes when
-  the call returns.
+  the call returns.  The batch driver's steps and chunks replay from one
+  cache for the process (``steps()``), as the JAX package jits them at
+  module scope: a MIP calls ``solve_batch`` once a node wave, and waves of
+  one shape capture each step once.  That cache runs a key eagerly at its
+  first use and captures it at its second, so that a step taken once (a
+  one-off call's phase 1, a call's polish) costs what an eager step costs
+  and no capture.  It is bounded by bytes: past ``STEP_CACHE_BYTES`` (its
+  graphs' memory pools, as the capture grew the card's reserved memory,
+  its static buffers and the tensors its entries read in place) it evicts
+  the least recently used entries, each with its graph, its memory pool,
+  its static outputs and the static input buffers no other entry uses.
 
 An error in a capture or a replay propagates: nothing falls back to eager
 execution or to a kernel's plain version.
@@ -69,12 +98,13 @@ import contextlib
 import contextvars
 import time
 import weakref
-from collections import Counter
+from collections import Counter, OrderedDict
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils._pytree import tree_map
 
-from relp_tpu_torch.ops import price_scan
+from relp_tpu_torch.ops import batch_pivot, price_scan
 from relp_tpu_torch.simplex import df_kernels, kernels, lu
 
 # The graph type, and the devices whose chunks the engines and
@@ -84,10 +114,20 @@ Graph = torch.cuda.CUDAGraph
 DEVICE_TYPES = ("cuda",)
 
 # Captures, replays and capture seconds (warm-up included) since the last
-# reset, over every cache.
+# reset, over every cache, and the entries the bounded cache evicted.
 CAPTURES = 0
 REPLAYS = 0
 CAPTURE_SECONDS = 0.0
+EVICTIONS = 0
+
+# The bytes the process-wide cache of the batch driver's steps may hold
+# (graph pools, static buffers, tensors read in place), a twentieth of an
+# 80 GB card.  chip_smoke's paths hold at most a few hundred MB
+# (``step_cache_MB`` on its lines; PERF.md).
+STEP_CACHE_BYTES = 4 << 30
+# Keys the cache of steps remembers having run once (eagerly).
+_SEEN_LIMIT = 4096
+_STEPS: Optional["ChunkGraphs"] = None
 
 # One capture stream a card, reused by every cache (a new stream would get
 # cuBLAS workspaces of its own).
@@ -113,26 +153,59 @@ def cache() -> "ChunkGraphs":
     return _SHARED.get() or ChunkGraphs()
 
 
+def steps() -> "ChunkGraphs":
+    """The process-wide, bounded cache of the batch driver's steps."""
+    global _STEPS
+    if _STEPS is None:
+        _STEPS = ChunkGraphs(max_bytes=STEP_CACHE_BYTES, second_use=True)
+    return _STEPS
+
+
 def _signature(x: torch.Tensor) -> Tuple:
-    return tuple(x.shape), x.dtype, str(x.device)
+    return tuple(x.shape), x.dtype, str(x.device), x.stride()
 
 
-def _scan_counts() -> Dict[str, int]:
-    """The scan wrapper's counts, its total under the key ``"all"``."""
-    return {"all": price_scan.LAUNCHES, **price_scan.LAUNCHES_BY_DTYPE}
+def _expanded(x: torch.Tensor) -> bool:
+    """One slice expanded over the leading dimension (batch stride 0)."""
+    return x.dim() > 1 and x.stride(0) == 0
 
 
-def _set_scan_counts(counts: Dict[str, int]) -> None:
-    counts = dict(counts)
-    price_scan.LAUNCHES = counts.pop("all")
-    price_scan.LAUNCHES_BY_DTYPE.update(counts)
+def _reserved(device: torch.device) -> int:
+    """The card's reserved memory (0 off CUDA): its growth over a capture
+    is the graph's memory pool."""
+    return torch.cuda.memory_reserved(device) if device.type == "cuda" else 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel wrapper's launch counter: the scan's in all
+    (``"scan"``) and by dtype (``"scan_<dtype>"``), the batched-pivot
+    kernels' (``"resident"``, ``"blocked"``)."""
+    return {"scan": price_scan.LAUNCHES,
+            **{f"scan_{name}": n for name, n in price_scan.LAUNCHES_BY_DTYPE.items()},
+            "resident": batch_pivot.LAUNCHES_RESIDENT,
+            "blocked": batch_pivot.LAUNCHES_BLOCKED}
+
+
+def _set_launch_counts(counts: Dict[str, int]) -> None:
+    price_scan.LAUNCHES = counts["scan"]
+    for name in price_scan.LAUNCHES_BY_DTYPE:
+        price_scan.LAUNCHES_BY_DTYPE[name] = counts[f"scan_{name}"]
+    batch_pivot.LAUNCHES_RESIDENT = counts["resident"]
+    batch_pivot.LAUNCHES_BLOCKED = counts["blocked"]
 
 
 class _Slot:
-    """A static input buffer and the tensor last copied into it."""
+    """A static input buffer, laid out as the tensor it was made for (one
+    slice expanded over the leading dimension stays one slice), and the
+    tensor last copied into it."""
 
     def __init__(self, like: torch.Tensor):
-        self.buffer = torch.empty_like(like, memory_format=torch.contiguous_format)
+        if _expanded(like):
+            self._base = torch.empty_like(like[0])
+            self.buffer = self._base.expand(like.shape)
+        else:
+            self.buffer = self._base = torch.empty_like(like)
+        self.nbytes = self._base.untyped_storage().nbytes()
         self._source = None
         self._ptr = self._version = None
 
@@ -140,29 +213,40 @@ class _Slot:
         if (not always and self._source is not None and self._source() is x
                 and x.data_ptr() == self._ptr and x._version == self._version):
             return
-        self.buffer.copy_(x)
+        self._base.copy_(x[0] if self._base is not self.buffer else x)
         self._source = weakref.ref(x)
         self._ptr, self._version = x.data_ptr(), x._version
 
 
 class _Entry:
-    """One captured chunk: its graph, its static outputs, the scan launches
-    (by dtype) that one replay makes, and its static arguments."""
+    """One captured chunk: its graph, its static outputs, the launches (by
+    counter) that one replay makes, its static arguments, the keys of the
+    slots it reads, the tensors it reads in place and the bytes of its
+    memory pool."""
 
-    def __init__(self, graph, outputs: NamedTuple, launches: Dict[str, int],
-                 static: Dict[str, Any]):
+    def __init__(self, graph, outputs, launches: Dict[str, int],
+                 static: Dict[str, Any], slots: Tuple, bound: Tuple, pool_bytes: int):
         self.graph = graph
         self.outputs = outputs
         self.launches = launches
         self.static = static
+        self.slots = slots
+        self.bound = bound
+        self.pool_bytes = pool_bytes
 
 
 class ChunkGraphs:
-    """The captured chunks of one engine (see the module docstring)."""
+    """Captured chunks: one engine's, or the process-wide cache of the
+    batch driver's steps (see the module docstring), with ``max_bytes``,
+    the bytes it holds at most, and ``second_use``, capture at a key's
+    second use."""
 
-    def __init__(self):
+    def __init__(self, max_bytes: Optional[int] = None, second_use: bool = False):
+        self.max_bytes = max_bytes
+        self._seen: Optional["OrderedDict[Tuple, None]"] = (
+            OrderedDict() if second_use else None)
         self._slots: Dict[Tuple, _Slot] = {}
-        self._entries: Dict[Tuple, _Entry] = {}
+        self._entries: "OrderedDict[Tuple, _Entry]" = OrderedDict()
 
     def run_chunk(self, state, A_scan, A_full, c, candidate_mask, *,
                   pricing: int, chunk: int, opt_tol: float, pivot_tol: float,
@@ -172,7 +256,7 @@ class ChunkGraphs:
         return self.run(
             kernels.run_chunk, state,
             dict(A_scan=A_scan, A_full=A_full, c=c, candidate_mask=candidate_mask),
-            must_scan=pricing == kernels.PRICE_STEEPEST,
+            must_launch="scan" if pricing == kernels.PRICE_STEEPEST else None,
             pricing=pricing, chunk=chunk, opt_tol=opt_tol, pivot_tol=pivot_tol,
             degen_tol=degen_tol, stop_at_zero=stop_at_zero, noisy_scan=noisy_scan,
             early_exit=False,
@@ -212,7 +296,7 @@ class ChunkGraphs:
             df_kernels.df_run_chunk, state,
             dict(A_scan=A_scan, Ah=Ah, Al=Al, ch=ch, cl=cl,
                  candidate_mask=candidate_mask),
-            must_scan=pricing == kernels.PRICE_STEEPEST,
+            must_launch="scan" if pricing == kernels.PRICE_STEEPEST else None,
             pricing=pricing, chunk=chunk, opt_tol=opt_tol, pivot_tol=pivot_tol,
             degen_tol=degen_tol, stop_at_zero=stop_at_zero, noisy_scan=noisy_scan,
             early_exit=False,
@@ -224,18 +308,14 @@ class ChunkGraphs:
         return Counter(entry.static[name] for key, entry in self._entries.items()
                        if key[0] is body)
 
-    def _slot(self, role: str, x: torch.Tensor) -> _Slot:
-        key = (role, *_signature(x))
-        slot = self._slots.get(key)
-        if slot is None:
-            slot = self._slots[key] = _Slot(x)
-        return slot
-
     def run(self, body: Callable, state: NamedTuple, inputs: Dict[str, torch.Tensor],
-            *, must_scan: bool = False, **static) -> NamedTuple:
+            *, must_launch: Optional[str] = None, bound: Tuple[str, ...] = (), **static):
         """``body(state, **inputs, **static)`` as a replayed graph, captured
-        at the first call of its key; ``must_scan``: a capture on CUDA that
-        launched no scan kernel raises."""
+        at the first call of its key (the second with ``second_use``; the
+        first runs eagerly); ``must_launch``: the name of a counter of
+        ``launch_counts`` that a capture on CUDA must have counted (it
+        raises when that kernel did not launch); ``bound``: the roles of
+        inputs read in place (see ``release``)."""
         global REPLAYS
         # Each input's role, or the role of the earlier input it is.
         alias = {}
@@ -243,31 +323,78 @@ class ChunkGraphs:
             alias[role] = next(r for r, y in inputs.items() if y is x)
         key = (body, type(state), tuple(sorted(static.items())),
                tuple(_signature(x) for x in state),
-               tuple((role, alias[role], _signature(x)) for role, x in inputs.items()))
-        state_slots = [self._slot(f"state.{name}", x)
-                       for name, x in zip(state._fields, state)]
-        slots = {role: self._slot(role, x) for role, x in inputs.items()
-                 if alias[role] == role}
-        for slot, x in zip(state_slots, state):
-            slot.fill(x, always=True)
-        for role, slot in slots.items():
-            slot.fill(inputs[role], always=False)
+               tuple((role, alias[role], _signature(x), id(x) if role in bound else None)
+                     for role, x in inputs.items()))
         entry = self._entries.get(key)
+        if entry is None and self._seen is not None and key not in self._seen:
+            self._seen[key] = None
+            if len(self._seen) > _SEEN_LIMIT:
+                self._seen.popitem(last=False)
+            return body(state, **inputs, **static)
+        state_keys = [(f"state.{name}", *_signature(x))
+                      for name, x in zip(state._fields, state)]
+        input_keys = {role: (role, *_signature(x)) for role, x in inputs.items()
+                      if alias[role] == role and role not in bound}
+        for slot_key, x in zip(state_keys, state):
+            self._slot(slot_key, x).fill(x, always=True)
+        for role, slot_key in input_keys.items():
+            self._slot(slot_key, inputs[role]).fill(inputs[role], always=False)
         if entry is None:
-            static_state = type(state)(*(slot.buffer for slot in state_slots))
-            static_inputs = {role: slots[alias[role]].buffer for role in inputs}
+            static_state = type(state)(*(self._slots[k].buffer for k in state_keys))
+            static_inputs = {role: inputs[role] if alias[role] in bound
+                             else self._slots[input_keys[alias[role]]].buffer
+                             for role in inputs}
             entry = self._entries[key] = self._capture(
-                body, static_state, static_inputs, static, must_scan)
+                body, static_state, static_inputs, static, must_launch,
+                (*state_keys, *input_keys.values()),
+                tuple(inputs[role] for role in bound if alias[role] == role))
+            self._evict()
+        else:
+            self._entries.move_to_end(key)
         entry.graph.replay()
         REPLAYS += 1
-        _set_scan_counts({name: n + entry.launches[name]
-                          for name, n in _scan_counts().items()})
-        return type(entry.outputs)(*(x.clone() for x in entry.outputs))
+        _set_launch_counts({name: n + entry.launches[name]
+                            for name, n in launch_counts().items()})
+        return tree_map(torch.clone, entry.outputs)
 
-    def _capture(self, body, state, inputs, static, must_scan: bool) -> _Entry:
+    def nbytes(self) -> int:
+        """The bytes this cache holds: its graphs' memory pools, its static
+        buffers and the tensors its entries read in place."""
+        bound = {id(x): x for entry in self._entries.values() for x in entry.bound}
+        return (sum(entry.pool_bytes for entry in self._entries.values())
+                + sum(slot.nbytes for slot in self._slots.values())
+                + sum(x.untyped_storage().nbytes() for x in bound.values()))
+
+    def release(self, *tensors: torch.Tensor) -> None:
+        """Drop every entry that reads one of ``tensors`` in place, and the
+        static buffers no kept entry reads."""
+        for key in [key for key, entry in self._entries.items()
+                    if any(x is t for x in entry.bound for t in tensors)]:
+            del self._entries[key]
+        self._prune()
+
+    def _evict(self) -> None:
+        global EVICTIONS
+        while (self.max_bytes is not None and len(self._entries) > 1
+               and self.nbytes() > self.max_bytes):
+            self._entries.popitem(last=False)
+            EVICTIONS += 1
+            self._prune()
+
+    def _prune(self) -> None:
+        used = {k for entry in self._entries.values() for k in entry.slots}
+        self._slots = {k: slot for k, slot in self._slots.items() if k in used}
+
+    def _slot(self, key: Tuple, x: torch.Tensor) -> _Slot:
+        slot = self._slots.get(key)
+        if slot is None:
+            slot = self._slots[key] = _Slot(x)
+        return slot
+
+    def _capture(self, body, state, inputs, static, must_launch, slots, bound) -> _Entry:
         global CAPTURES, CAPTURE_SECONDS
         device = state[0].device
-        counts = _scan_counts()
+        counts = launch_counts()
         t0 = time.perf_counter()
         graph = Graph()
         stream, on_stream = None, contextlib.nullcontext()
@@ -281,19 +408,21 @@ class ChunkGraphs:
             body(state, **inputs, **dict(static, chunk=1))  # the warm-up
             if stream is not None:
                 torch.cuda.synchronize(device)
-            before = _scan_counts()
+            before = launch_counts()
+            reserved = _reserved(device)
             graph.capture_begin()
             try:
                 outputs = body(state, **inputs, **static)
             finally:
                 graph.capture_end()
+            pool_bytes = max(0, _reserved(device) - reserved)
         if stream is not None:
             torch.cuda.current_stream(device).wait_stream(stream)
-        launches = {name: n - before[name] for name, n in _scan_counts().items()}
-        _set_scan_counts(counts)
-        if must_scan and device.type == "cuda" and not launches["all"]:
+        launches = {name: n - before[name] for name, n in launch_counts().items()}
+        _set_launch_counts(counts)
+        if must_launch and device.type == "cuda" and not launches[must_launch]:
             raise RuntimeError(
-                f"captured a steepest-edge {body.__name__} that launched no scan kernel")
+                f"captured a {body.__name__} that launched no {must_launch} kernel")
         CAPTURES += 1
         CAPTURE_SECONDS += time.perf_counter() - t0
-        return _Entry(graph, outputs, launches, static)
+        return _Entry(graph, outputs, launches, static, slots, bound, pool_bytes)

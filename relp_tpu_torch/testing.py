@@ -370,3 +370,79 @@ def body_case(kind, m, n, pad=128, seed=7, device="cpu", chunk=60):
         return (state, lambda st: pdhg._pdhg_chunk(st, **inputs, chunk=chunk),
                 lambda cache, st: cache.run(pdhg._pdhg_chunk, st, inputs, chunk=chunk))
     raise ValueError(f"unknown kind of chunk {kind!r}")
+
+
+# The kinds of device step of ``solve_batch`` that ``step_case`` builds: its
+# ``_batch_step`` through each batched-pivot kernel (the kernel route; the
+# family's shape decides the kernel), on the batched torch path in f32 and
+# in f64 (with the default f32 scans: a cast of the tableau), the dual
+# chunk of a warm restart and the f64 polish chunk.
+STEP_KINDS = ("kernel", "torch_float32", "torch_float64", "dual", "polish")
+
+
+def step_case(kind, family, device="cpu", chunk=25, stop_at_zero=True):
+    """(body, state, inputs, static) of one of ``solve_batch``'s device
+    steps (``STEP_KINDS``) on ``device``, for
+    ``parallel.batch_driver.run_step(body, state, inputs, graphed=...,
+    **static)`` (``static`` also holds the kernel route's ``must_launch``).
+    The family (``scenario_family``'s keywords) is lowered as
+    ``solve_batch`` lowers it, one tableau expanded over the batch, with
+    chip_smoke's batch configuration (pad 128).  The steps start from the
+    phase-1 start with fresh steepest-edge weights, on the phase-1 costs
+    with ``stop_at_zero``, else on the real costs; the dual chunk from the
+    optimal basis of the family's unperturbed base, refactorized as the
+    warm restart does (``family`` then wobbles enough that the scenarios
+    need dual pivots: WARM_FAMILY); the polish chunk is the batched chunk
+    at f64 on the f64 tableau with the real costs, from the f64 family's
+    phase-1 start."""
+    import torch
+
+    from relp_tpu_torch.config import SolverConfig
+    from relp_tpu_torch.parallel import batch
+    from relp_tpu_torch.parallel.batch_driver import _batch_step, cast_tableau, lower_batch
+    from relp_tpu_torch.simplex import solve_relaxation
+    from relp_tpu_torch.simplex.engine import scan_dtype
+    from relp_tpu_torch.simplex.kernels import PRICE_STEEPEST
+
+    device = torch.device(device)
+    dtype = "float64" if kind in ("torch_float64", "polish") else "float32"
+    cfg = SolverConfig(platform=device.type, dtype=dtype, pad_to=128, chunk_size=150,
+                       refactor_period=150)
+    problems, A, b, c1, c2, cand, st = lower_batch(
+        scenario_family(**family), cfg, device, shared_structure=True)
+    mixed = cfg.scan_dtype not in ("same", cfg.dtype)
+    A_scan = cast_tableau(A, scan_dtype(cfg)) if mixed else A
+    tols = dict(opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol)
+    if kind == "dual":
+        gf, counts = scenario_base(family["m"], family["n"], family["seed"])
+        base = solve_relaxation(gf.derive_matrix_data(counts), cfg).basis
+        full = problems[0].initial_basis.copy()
+        full[: len(base)] = base
+        in_basis = torch.zeros(A.shape[2], dtype=torch.bool, device=device)
+        in_basis[torch.as_tensor(full, dtype=torch.int64, device=device)] = True
+        count = A.shape[0]
+        st = st._replace(
+            basis=torch.as_tensor(full, dtype=torch.int32, device=device).repeat(count, 1),
+            in_basis=in_basis.repeat(count, 1))
+        Binv, xB, pi, obj, _res = batch._v_refactor(A, b, c2, st.basis, newton_steps=1)
+        xB = torch.where(xB > -cfg.feas_tol, torch.clamp_min(xB, 0.0), xB)
+        return (batch.batched_dual_run_chunk,
+                st._replace(Binv=Binv, xB=xB, pi=pi, obj=obj),
+                dict(A_scan=A_scan, A_full=A, c=c2, candidate_mask=cand),
+                dict(chunk=chunk, feas_tol=cfg.feas_tol, noisy_scan=False, **tols))
+    st = st._replace(gamma=batch._v_gamma(st.Binv, A_scan, st.in_basis))
+    primal = dict(pricing=PRICE_STEEPEST, chunk=chunk, degen_tol=cfg.feas_tol,
+                  noisy_scan=False, **tols)
+    if kind == "polish":
+        return (batch.batched_run_chunk, st,
+                dict(A_scan=A, A_full=A, c=c2, candidate_mask=cand),
+                dict(primal, shard=None))
+    mega = kind == "kernel"
+    static = dict(primal, stop_at_zero=stop_at_zero, hi_scan=False, mega=mega,
+                  newton_steps=3 if dtype == "float64" else 1, feas_tol=cfg.feas_tol,
+                  refactor_period=0, use_steepest=True, shard=None)
+    if mega:
+        static["must_launch"] = batch._megakernel_variant(A.shape)
+    return (_batch_step, st,
+            dict(A_scan=A_scan, A=A, b=b, c=c1 if stop_at_zero else c2, cand=cand),
+            static)

@@ -27,7 +27,16 @@ chunk's bits, primal and dual, at an aligned, an unaligned and a ragged
 shape; so do the LU chunk (entering with an empty ring and with etas in
 it), the df32 chunk (with the eager chunk's scan launches) and the PDHG
 chunk, and whole solves with ``basis_inverse="lu"`` and ``carry="df32"``
-and ``pdhg_solve`` give the eager results through them.
+and ``pdhg_solve`` give the eager results through them.  The batch
+driver's steps (``_batch_step`` on the kernel route and the batched torch
+path, the dual and the polish chunk) replayed from the process-wide cache
+give the eager steps' bits and kernel launches, also a kernel-route graph
+replayed after an eager launch at a smaller M; a kernel-route capture that
+launches no kernel raises; solve_batch through graphs gives the eager
+call's results; and with a tableau per LP, whose steps read it in place,
+its peak memory stays within the largest graph pool and the cache's
+static buffers of the eager call's, and it keeps nothing allocated that
+the eager call does not.
 """
 
 import os
@@ -39,7 +48,7 @@ import torch
 from relp_tpu_torch.config import SolverConfig
 from relp_tpu_torch.ops import batch_pivot, price_scan
 from relp_tpu_torch.simplex import SolveStatus, solve_general_form
-from relp_tpu_torch.testing import generated_lp, scenario_family
+from relp_tpu_torch.testing import WARM_FAMILY, generated_lp, scenario_family
 
 pytestmark = pytest.mark.cuda
 
@@ -488,3 +497,214 @@ def test_probe_kernel_matches_plain(cuda_device, kind, M):
     assert plain.device == a.device
     err = float((first.double() - plain).abs().max())
     assert err <= (0.0 if kind == "outer" else 1e-6 * float(plain.abs().max()))
+
+
+# Families of testing.step_case for the batch driver's captured steps: the
+# resident kernel's shape (8 x 128x256), the blocked kernel's (3 x
+# 384x896) and the warm family's first 16 scenarios (16 x 128x384).
+STEP_FAMILIES = {"resident": dict(m=16, n=48, seed=7, count=8),
+                 "blocked": dict(m=150, n=200, seed=7, count=3),
+                 "warm": dict(WARM_FAMILY, count=16)}
+BATCH_STEP_CASES = [("kernel", "resident", True), ("kernel", "resident", False),
+                    ("kernel", "blocked", True), ("kernel", "blocked", False),
+                    ("torch_float32", "resident", True), ("torch_float32", "resident", False),
+                    ("torch_float64", "resident", True), ("torch_float64", "resident", False),
+                    ("dual", "warm", None), ("polish", "resident", None)]
+
+
+def _state_bits_equal(got, want):
+    for field, g, e in zip(want._fields, got, want):
+        assert g.dtype == e.dtype and torch.equal(
+            g.reshape(-1).view(torch.uint8), e.reshape(-1).view(torch.uint8)), field
+
+
+@pytest.mark.parametrize("kind,family,stop_at_zero", BATCH_STEP_CASES)
+def test_graphed_batch_step_equals_eager_step(cuda_device, kind, family, stop_at_zero):
+    """One of solve_batch's device steps (testing.step_case) through the
+    process-wide cache against the eager step from the same state, three
+    times in a row after the key's first use (which runs eagerly; the
+    polish chunk's output is another key, first used at the second step):
+    state and report bitwise equal, and the batched-pivot launches of the
+    graphed steps those of the eager ones."""
+    from relp_tpu_torch.parallel.batch_driver import _batch_step, run_step
+    from relp_tpu_torch.simplex import graphs
+    from relp_tpu_torch.testing import step_case
+
+    kw = {} if stop_at_zero is None else dict(stop_at_zero=stop_at_zero)
+    body, state, inputs, static = step_case(kind, STEP_FAMILIES[family],
+                                            device=cuda_device, **kw)
+    run_step(body, state, inputs, graphed=True, **static)  # the first use
+    graphed = eager = state
+    replays = graphs.REPLAYS
+    for _ in range(3):
+        before = graphs.launch_counts()
+        e = run_step(body, eager, inputs, graphed=False, **static)
+        middle = graphs.launch_counts()
+        g = run_step(body, graphed, inputs, graphed=True, **static)
+        torch.cuda.synchronize()
+        after = graphs.launch_counts()
+        for name in ("resident", "blocked"):
+            assert after[name] - middle[name] == middle[name] - before[name], name
+        if static.get("must_launch"):
+            assert middle[static["must_launch"]] == before[static["must_launch"]] + 1
+        if body is _batch_step:
+            assert torch.equal(g[1].view(torch.uint8), e[1].view(torch.uint8))
+            g, e = g[0], e[0]
+        _state_bits_equal(g, e)
+        graphed, eager = g, e
+    assert graphs.REPLAYS == replays + (2 if kind == "polish" else 3)
+    assert int((eager.iteration - state.iteration).sum()) > 0
+
+
+@pytest.mark.parametrize("variant", ["resident", "blocked"])
+def test_graphed_kernel_step_replays_after_a_smaller_eager_launch(cuda_device, variant):
+    """A kernel-route step captured at the family's M, then the same kernel
+    launched eagerly at M=32 (csrc/batch_pivot.cu sets the kernel's
+    shared-memory attribute to each launch's own size, lowering it), then
+    the first graph replayed: the eager step's bits."""
+    from relp_tpu_torch.parallel.batch_driver import run_step
+    from relp_tpu_torch.simplex import graphs
+    from relp_tpu_torch.testing import step_case
+
+    body, state, inputs, static = step_case("kernel", STEP_FAMILIES[variant],
+                                            device=cuda_device)
+    want, want_report = run_step(body, state, inputs, graphed=False, **static)
+    cache = graphs.ChunkGraphs()
+    cache.run(body, state, inputs, early_exit=False, **static)  # the capture
+    kern = (batch_pivot.batched_pivot_chunk if variant == "resident"
+            else batch_pivot.batched_pivot_chunk_blocked)
+    small = _toy_batch(cuda_device, 3, 16, 32)
+    smem = batch_pivot.smem_bytes(32, small[0].shape[2], resident=variant == "resident")
+    _B, M, N = inputs["A"].shape
+    assert smem < batch_pivot.smem_bytes(M, N, resident=variant == "resident")
+    kern(*small, chunk=5, opt_tol=1e-7, pivot_tol=1e-7, degen_tol=1e-7)
+    got, report = cache.run(body, state, inputs, early_exit=False, **static)
+    torch.cuda.synchronize()
+    _state_bits_equal(got, want)
+    assert torch.equal(report.view(torch.uint8), want_report.view(torch.uint8))
+
+
+def test_graphed_kernel_step_that_launches_no_kernel_raises(cuda_device, monkeypatch):
+    """A kernel-route capture on the card whose step launched no
+    batched-pivot kernel (the plain version swapped in) raises."""
+    from relp_tpu_torch.simplex import graphs
+    from relp_tpu_torch.testing import step_case
+
+    monkeypatch.setattr(batch_pivot, "batched_pivot_chunk",
+                        batch_pivot.batched_pivot_chunk_reference)
+    body, state, inputs, static = step_case("kernel", STEP_FAMILIES["resident"],
+                                            device=cuda_device, chunk=5)
+    with pytest.raises(RuntimeError, match="launched no resident kernel"):
+        graphs.ChunkGraphs().run(body, state, inputs, early_exit=False, **static)
+
+
+@pytest.mark.parametrize("case", ["resident", "blocked", "float64", "warm"])
+def test_graphed_batch_solve_equals_eager_solve(cuda_device, case):
+    """solve_batch on the card with its steps replayed from the
+    process-wide cache and with graphs.DEVICE_TYPES emptied (every step
+    eager): the same statuses, exact objectives, bases and pivots, the same
+    batched-pivot launches; a second graphed call replays, and captures
+    only the steps the first took once; a third captures nothing."""
+    from relp_tpu_torch.parallel import solve_batch
+    from relp_tpu_torch.simplex import graphs, solve_relaxation
+    from relp_tpu_torch.testing import scenario_base
+
+    family = STEP_FAMILIES["warm" if case == "warm" else
+                           "blocked" if case == "blocked" else "resident"]
+    cfg = SolverConfig(dtype="float64" if case == "float64" else "float32",
+                       pad_to=128, chunk_size=150, refactor_period=150)
+    kw = dict(certify=True, shared_structure=True)
+    if case == "warm":
+        gf, counts = scenario_base(family["m"], family["n"], family["seed"])
+        kw["warm_start_basis"] = solve_relaxation(gf.derive_matrix_data(counts),
+                                                  cfg).basis
+
+    def solve():
+        before = graphs.launch_counts()
+        results = solve_batch(scenario_family(**family), cfg, **kw)
+        after = graphs.launch_counts()
+        return ([(r.status, r.exact_objective, r.stats.certified, r.basis,
+                  r.stats.iterations, r.stats.phase1_iterations,
+                  r.stats.dual_iterations, r.stats.batch_fallback) for r in results],
+                {k: after[k] - before[k] for k in ("resident", "blocked")})
+
+    graphed, launches = solve()
+    replays = graphs.REPLAYS
+    assert solve() == (graphed, launches) and graphs.REPLAYS > replays
+    captures = graphs.CAPTURES
+    assert solve() == (graphed, launches) and graphs.CAPTURES == captures
+    kept = graphs.DEVICE_TYPES
+    graphs.DEVICE_TYPES = ()
+    try:
+        replays = graphs.REPLAYS
+        assert solve() == (graphed, launches)
+        assert graphs.REPLAYS == replays
+    finally:
+        graphs.DEVICE_TYPES = kept
+    assert all(v[2] for v in graphed)
+    if case == "warm":
+        assert all(v[6] > 0 for v in graphed if not v[7])
+    assert (launches["resident"] > 0) == (case == "resident")
+    assert (launches["blocked"] > 0) == (case == "blocked")
+
+
+def test_graphed_batch_with_stacked_tableaus_stays_within_one_pool_of_eager(
+        cuda_device, capsys):
+    """solve_batch with a tableau per LP (the default layout; 16 x 384x896,
+    50-pivot chunks) with every step eager, then through the cache of
+    steps, each from an empty cache: the same results; the graphed call's
+    peak allocated memory at most the eager call's plus its largest graph
+    pool and the cache's static buffers (no copy of the tableau: its steps
+    read it in place); after the call the cache holds nothing of it, and no
+    more stays allocated than after the eager call."""
+    from relp_tpu_torch.parallel import solve_batch
+    from relp_tpu_torch.simplex import graphs
+
+    cfg = SolverConfig(pad_to=128, chunk_size=50, refactor_period=50)
+    family = dict(STEP_FAMILIES["blocked"], count=16)
+    at_release = {}
+    release = graphs.ChunkGraphs.release
+
+    def recording_release(cache, *tensors):
+        entries = list(cache._entries.values())
+        at_release.update(
+            pool=max((e.pool_bytes for e in entries), default=0),
+            slots=sum(slot.nbytes for slot in cache._slots.values()),
+            entries=len(entries), bound=sum(bool(e.bound) for e in entries))
+        return release(cache, *tensors)
+
+    def solve(graphed):
+        kept = graphs.DEVICE_TYPES
+        graphs.DEVICE_TYPES = kept if graphed else ()
+        graphs._STEPS = None
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            results = solve_batch(scenario_family(**family), cfg, certify=False)
+            torch.cuda.synchronize()
+            return ([(r.status, r.basis, r.stats.iterations) for r in results],
+                    torch.cuda.max_memory_allocated() - before,
+                    torch.cuda.max_memory_reserved(),
+                    torch.cuda.memory_allocated() - before)
+        finally:
+            graphs.DEVICE_TYPES = kept
+
+    eager, eager_peak, eager_reserved, eager_kept = solve(False)
+    graphs.ChunkGraphs.release = recording_release
+    try:
+        replays = graphs.REPLAYS
+        graphed, peak, reserved, kept = solve(True)
+    finally:
+        graphs.ChunkGraphs.release = release
+    with capsys.disabled():
+        print(f"\nstacked 16x384x896: peak allocated eager {eager_peak} graphed {peak}, "
+              f"peak reserved eager {eager_reserved} graphed {reserved}, kept after "
+              f"eager {eager_kept} graphed {kept}, at release {at_release}")
+    assert graphed == eager and graphs.REPLAYS > replays
+    assert at_release["entries"] > 0 and at_release["bound"] == at_release["entries"]
+    assert peak <= eager_peak + at_release["pool"] + at_release["slots"]
+    assert not graphs.steps()._entries and graphs.steps().nbytes() == 0
+    assert kept <= eager_kept
+    graphs._STEPS = None

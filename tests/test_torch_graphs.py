@@ -112,10 +112,12 @@ class RecordingGraph:
 @pytest.fixture
 def recording(monkeypatch):
     """The stand-in as the graph type, the CPU among the captured devices,
-    and the module's counters from zero."""
+    the module's counters from zero, and a process-wide cache of the batch
+    driver's steps (``graphs.steps()``) that lives for the test."""
     monkeypatch.setattr(graphs, "Graph", RecordingGraph)
     monkeypatch.setattr(graphs, "DEVICE_TYPES", ("cuda", "cpu"))
-    for name, zero in (("CAPTURES", 0), ("REPLAYS", 0), ("CAPTURE_SECONDS", 0.0)):
+    for name, zero in (("CAPTURES", 0), ("REPLAYS", 0), ("CAPTURE_SECONDS", 0.0),
+                       ("EVICTIONS", 0), ("_STEPS", None)):
         monkeypatch.setattr(graphs, name, zero)
 
 
