@@ -179,27 +179,34 @@ graphs=captures/replays/capture seconds of the path):
                    CPU on the same f32 inputs, bitwise, at M = 1920.
  20. mesh/world1, mesh/chunk, mesh/kernel
                    the mesh as a world of one over NCCL
-                   (initialize_multihost(), make_mesh((1, 1))): main/real
-                   through solve_relaxation(mesh=...) with main/real's
-                   basis, pivots and digest; the resident family through
-                   solve_batch(mesh=...) on the batched torch path, its
-                   digest; first_order/pdhg's LP through pdhg_solve(mesh=...)
-                   held to the same call unsharded (4,000 iterations; that
-                   call, like the chunk-loop timing below, runs outside the
-                   path's launch count); collectives and ms per pivot of
-                   the sharded chunk loop
-                   beside the unsharded one (also timed before the process
-                   group exists); the scan kernel against its plain version
-                   on this path's inputs.  One card shows the code, not a
+                   (initialize_multihost(), make_mesh((1, 1))), every loop
+                   replayed from CUDA graphs with its collectives captured:
+                   main/real through solve_relaxation(mesh=...) with
+                   main/real's basis, pivots and digest, a replay a chunk;
+                   the resident family through solve_batch(mesh=...) on the
+                   batched torch path, three times (the second call
+                   captures what the first took once, the third only
+                   replays), its digest and the same bases;
+                   first_order/pdhg's LP through pdhg_solve(mesh=...) held
+                   to the same call unsharded (4,000 iterations; that call,
+                   like the chunk-loop timing below, runs outside the
+                   path's launch count) and, bit for bit, to itself with
+                   its chunks eager; collectives and ms per pivot of the
+                   sharded chunk loop, eager and replayed from a graph (the
+                   same bits, the same collectives a pivot), beside the
+                   unsharded one (also timed before the process group
+                   exists); the scan kernel against its plain version on
+                   this path's inputs.  One card shows the code, not a
                    scale-out.
  21. mesh/lu       in the same NCCL world of one, before it is destroyed:
                    main/real's LP on the LU engine through
-                   solve_relaxation(mesh=..., basis_inverse="lu"), cut to
-                   the prefix before its 20th chunk: lu/real's pivots,
-                   basis and status there exactly; collectives and ms per
-                   pivot of the prefix beside lu/real's; the 20th chunk
-                   replayed under the profiler for launches and device-busy
-                   time per pivot.
+                   solve_relaxation(mesh=..., basis_inverse="lu"), its
+                   chunks replayed from graphs, cut to the prefix before
+                   its 20th chunk: lu/real's pivots, basis and status there
+                   exactly; collectives and ms per pivot of the prefix
+                   beside lu/real's; the 20th chunk's graph replayed under
+                   the profiler for launches, host launches and
+                   device-busy time per pivot beside lu/real's.
 
 A `[time] phase=<name> s=<seconds>` line follows every phase (a phase run
 inside another, mesh/lu, is not counted twice), and `[time] total_s=...`
@@ -1378,16 +1385,18 @@ def phase_batch_family(torch, np, label, fam, digest_want, warm_start_basis=None
     return results
 
 
-def _step_cache_fields():
-    """The process-wide cache of steps: its entries, the bytes it holds
+def _step_cache_fields(group=None):
+    """The process-wide cache of steps (with ``group``, the cache of the
+    steps sharded over that column group): its entries, the bytes it holds
     (pools, static buffers, tensors read in place), its largest graph pool
     and the batch widths of its entries."""
     from relp_tpu_torch.simplex import graphs
 
-    entries = list(graphs.steps()._entries.values())
+    cache = graphs.steps(group)
+    entries = list(cache._entries.values())
     widths = sorted({entry.slots[0][1][0] for entry in entries})  # state's B
     return dict(step_cache_entries=len(entries),
-                step_cache_MB=f"{graphs.steps().nbytes() / 1e6:.1f}",
+                step_cache_MB=f"{cache.nbytes() / 1e6:.1f}",
                 step_pool_max_MB=f"{max((e.pool_bytes for e in entries), default=0) / 1e6:.1f}",
                 step_widths=",".join(map(str, widths)) or "none")
 
@@ -2798,6 +2807,7 @@ def phase_mesh_lu(torch, mesh, lu, window):
         t0 = time.perf_counter()
         solve_relaxation(md, SolverConfig(basis_inverse="lu"), mesh=mesh)
     collectives = sharded.COLLECTIVES
+    graph_counts = _graph_counts()
     window["mesh/lu"] = _launch_counts()
     _check("run_chunk" in kept,
            f"mesh/lu: the solve ended after {len(calls)} chunks, before {_PROFILED_CHUNK}")
@@ -2818,13 +2828,15 @@ def phase_mesh_lu(torch, mesh, lu, window):
         collectives=collectives, collectives_per_pivot=f"{collectives / pivots:.3f}",
         prefix_s=f"{prefix_s:.3f}", prefix_ms_per_pivot=f"{prefix_s / pivots * 1e3:.4f}",
         lu_real_prefix_ms_per_pivot=f"{lu['prefix_s'] / pivots * 1e3:.4f}",
+        graphs=_graph_fields(graph_counts), **_CARD,
     )
     _line(
-        "mesh/lu", profiled_chunk=_PROFILED_CHUNK,
+        "mesh/lu", profiled_chunk=_PROFILED_CHUNK, path="graph",
         chunk_collectives_per_pivot=f"{replay.collectives / replay.pivots:.3f}",
         **replay.fields(),
         lu_real_chunk_ms_per_pivot=f"{lu['replay'].ms_per_pivot:.4f}",
         lu_real_launches_per_pivot=f"{lu['replay'].launches_per_pivot:.1f}",
+        lu_real_host_launches_per_pivot=f"{lu['replay'].host_launches_per_pivot:.3f}",
     )
 
 
@@ -2832,18 +2844,22 @@ def phase_mesh_world1(torch, np, device, main_result, window, lu):
     """The mesh (relp_tpu_torch.parallel) as a world of one over NCCL: one
     card shows the sharded code and its collectives, not a scale-out.
     initialize_multihost() with no torchrun environment, make_mesh((1, 1));
-    main/real through solve_relaxation(mesh=...): main/real's basis, pivots
-    and digest; the resident family through solve_batch(mesh=...), which
-    takes the batched torch path: every LP certified, the family's digest;
-    first_order/pdhg's LP through pdhg_solve(mesh=...) against the same
-    call unsharded (4,000 iterations each): the same iterations, the
-    objective within _MESH_PDHG_OBJECTIVE_REL, the iterates x and y within
-    _MESH_PDHG_X_REL and _MESH_PDHG_Y_REL (relative to their largest
-    entry) and the primal residual within twice the unsharded one;
-    collectives and ms per pivot of the sharded chunk loop beside the
-    unsharded one at the chunk loop's problem.  The path's launch counts (``window["mesh/world1"]``)
-    cover the three mesh solves only: the unsharded runs and the timing
-    loops run outside that window.  Then mesh/lu (``phase_mesh_lu``, with
+    every loop replays captured graphs, collectives inside.  main/real
+    through solve_relaxation(mesh=...): main/real's basis, pivots and
+    digest; the resident family through solve_batch(mesh=...), three
+    times, which takes the batched torch path: every LP certified, the family's
+    digest, the same bases; first_order/pdhg's LP through
+    pdhg_solve(mesh=...) against the same call unsharded (4,000 iterations
+    each): the same iterations, the objective within
+    _MESH_PDHG_OBJECTIVE_REL, the iterates x and y within _MESH_PDHG_X_REL
+    and _MESH_PDHG_Y_REL (relative to their largest entry) and the primal
+    residual within twice the unsharded one; and against itself with its
+    chunks eager, bit for bit; collectives and ms per pivot of the sharded
+    chunk loop, eager and graphed (the same bits), beside the unsharded
+    one at the chunk loop's problem.  The path's launch counts
+    (``window["mesh/world1"]``) cover the mesh solves only: the unsharded
+    runs, the eager PDHG check and the timing loops run outside that
+    window.  Then mesh/lu (``phase_mesh_lu``, with
     its own window) in the same world; the process group is destroyed at
     the end.  Returns the scan kernel's check on the inputs this path gave
     it."""
@@ -2859,9 +2875,10 @@ def phase_mesh_world1(torch, np, device, main_result, window, lu):
         shard_state,
         sharded,
         sharded_run_chunk,
+        shutdown_multihost,
         solve_batch,
     )
-    from relp_tpu_torch.simplex import SolveStatus, kernels, solve_relaxation
+    from relp_tpu_torch.simplex import SolveStatus, graphs, kernels, solve_relaxation
     from relp_tpu_torch.testing import (
         FAMILIES,
         FAMILY_OBJECTIVES_SHA256,
@@ -2923,6 +2940,7 @@ def phase_mesh_world1(torch, np, device, main_result, window, lu):
         gf.presolve()
         md = gf.derive_matrix_data(gf.standardize())
         sharded.COLLECTIVES = 0
+        graphs0 = _graph_counts()
         with _keeping_inputs(kernels, "fused_price_scan", kept):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2930,6 +2948,9 @@ def phase_mesh_world1(torch, np, device, main_result, window, lu):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         collectives = sharded.COLLECTIVES
+        graph_counts = {k: v - graphs0[k] for k, v in _graph_counts().items()}
+        _check(graph_counts["replays"] == result.stats.chunks,
+               f"mesh/world1: {graph_counts['replays']} replays for {result.stats.chunks} chunks")
         _check(result.status is SolveStatus.FINITE_OPTIMUM and result.stats.certified,
                f"mesh/world1 main/real: {result.status}")
         digest = hashlib.sha256(
@@ -2950,39 +2971,77 @@ def phase_mesh_world1(torch, np, device, main_result, window, lu):
             certify_s=f"{result.stats.certify_time_s:.3f}",
             certify_share=f"{result.stats.certify_time_s / wall:.3f}",
             solve_ms_per_pivot=f"{solve_s / pivots * 1e3:.4f}",
+            graphs=_graph_fields(graph_counts), **_CARD,
         )
 
-        # The resident family: the batch sharded over "batch" and "col".
+        # The resident family: the batch sharded over "batch" and "col",
+        # three times: a key runs eagerly at its first use and is captured
+        # at its second, so the second call captures what the first took
+        # once, and the third only replays.
         fam = FAMILIES["resident"]
-        before = batch_pivot.LAUNCHES_RESIDENT + batch_pivot.LAUNCHES_BLOCKED
-        sharded.COLLECTIVES = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        results = solve_batch(scenario_family(**fam), _batch_config(), certify=True,
-                              shared_structure=True, mesh=mesh)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        bad = [k for k, r in enumerate(results)
-               if r.status is not SolveStatus.FINITE_OPTIMUM or not r.stats.certified]
-        _check(not bad, f"mesh/world1 resident family: not certified {bad[:10]}")
-        digest = objectives_digest(r.exact_objective for r in results)
-        _check(digest == FAMILY_OBJECTIVES_SHA256["resident"],
-               f"mesh/world1 resident family digest {digest}")
-        launched = batch_pivot.LAUNCHES_RESIDENT + batch_pivot.LAUNCHES_BLOCKED - before
-        _check(launched == 0, "mesh/world1: a batched-pivot kernel ran under a mesh")
-        _line(
-            "mesh/world1", problem="batch/resident", scenarios=len(results),
-            path="batched torch", certified=len(results), digest_ok=True,
-            fallbacks=sum(bool(r.stats.batch_fallback) for r in results),
-            pivots=sum(r.stats.iterations for r in results),
-            collectives=sharded.COLLECTIVES, wall_s=f"{wall:.3f}",
-            certify_s=f"{sum(r.stats.certify_time_s for r in results):.3f}",
-        )
+        bases = []
+        for call in (1, 2, 3):
+            before = batch_pivot.LAUNCHES_RESIDENT + batch_pivot.LAUNCHES_BLOCKED
+            sharded.COLLECTIVES = 0
+            graphs0 = _graph_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results = solve_batch(scenario_family(**fam), _batch_config(), certify=True,
+                                  shared_structure=True, mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            graph_counts = {k: v - graphs0[k] for k, v in _graph_counts().items()}
+            bad = [k for k, r in enumerate(results)
+                   if r.status is not SolveStatus.FINITE_OPTIMUM or not r.stats.certified]
+            _check(not bad, f"mesh/world1 resident family: not certified {bad[:10]}")
+            digest = objectives_digest(r.exact_objective for r in results)
+            _check(digest == FAMILY_OBJECTIVES_SHA256["resident"],
+                   f"mesh/world1 resident family digest {digest}")
+            launched = batch_pivot.LAUNCHES_RESIDENT + batch_pivot.LAUNCHES_BLOCKED - before
+            _check(launched == 0, "mesh/world1: a batched-pivot kernel ran under a mesh")
+            bases.append([r.basis for r in results])
+            _check(bases[-1] == bases[0], f"mesh/world1: the resident call {call}'s bases "
+                                          "differ from the first call's")
+            _check(call == 1 or graph_counts["replays"] > 0,
+                   f"mesh/world1 resident family: call {call} replayed no step")
+            _check(call < 3 or graph_counts["captures"] == 0,
+                   "mesh/world1 resident family: the third call captured")
+            _line(
+                "mesh/world1", problem="batch/resident", call=call, scenarios=len(results),
+                path="batched torch", certified=len(results), digest_ok=True,
+                same_bases=True, fallbacks=sum(bool(r.stats.batch_fallback) for r in results),
+                pivots=sum(r.stats.iterations for r in results),
+                collectives=sharded.COLLECTIVES, wall_s=f"{wall:.3f}",
+                certify_s=f"{sum(r.stats.certify_time_s for r in results):.3f}",
+                device_solve_s=f"{max(r.stats.wall_time_s for r in results):.3f}",
+                graphs=_graph_fields(graph_counts),
+                graph_evictions=graph_counts["evictions"],
+                **_step_cache_fields(mesh.get_group("col")),
+            )
 
         # first_order/pdhg's LP, rows over "batch" and columns over "col";
         # the path's window closes after it.
+        graphs0 = _graph_counts()
         pdhg_run("sharded", mesh)
+        pdhg_graphs = {k: v - graphs0[k] for k, v in _graph_counts().items()}
         window["mesh/world1"] = _launch_counts()
+        # The same call with its chunks eager: the graphed point's bits.
+        keep = graphs.DEVICE_TYPES
+        graphs.DEVICE_TYPES = ()
+        try:
+            pdhg_run("sharded_eager", mesh)
+        finally:
+            graphs.DEVICE_TYPES = keep
+        graphed_pdhg, eager_pdhg = found["sharded"], found["sharded_eager"]
+        _check(graphed_pdhg["x"].tobytes() == eager_pdhg["x"].tobytes()
+               and graphed_pdhg["y"].tobytes() == eager_pdhg["y"].tobytes()
+               and graphed_pdhg["st"].iterations == eager_pdhg["st"].iterations
+               and graphed_pdhg["st"].restarts == eager_pdhg["st"].restarts
+               and graphed_pdhg["collectives"] == eager_pdhg["collectives"],
+               "mesh/world1 pdhg: the graphed sharded run differs from the eager one")
+        _check(pdhg_graphs["captures"] == 1
+               and pdhg_graphs["replays"] == _MESH_PDHG_ITERS // 200,
+               f"mesh/world1 pdhg: graphs {_graph_fields(pdhg_graphs)}")
         one, ref = found["sharded"], found["unsharded"]
         rel = abs(one["objective"] - ref["objective"]) / (1.0 + abs(ref["objective"]))
         x_rel, y_rel = (float(np.abs(one[v] - ref[v]).max() / (1.0 + np.abs(ref[v]).max()))
@@ -3001,7 +3060,9 @@ def phase_mesh_world1(torch, np, device, main_result, window, lu):
             iterations=one["st"].iterations, restarts=one["st"].restarts,
             unsharded_restarts=ref["st"].restarts, collectives=one["collectives"],
             collectives_per_iteration=f"{one['collectives'] / one['st'].iterations:.3f}",
+            graphs=_graph_fields(pdhg_graphs), graphed_point_bitwise_eager=True,
             ms_per_iteration=f"{per_it['sharded']:.4f}",
+            eager_ms_per_iteration=f"{per_it['sharded_eager']:.4f}",
             unsharded_ms_per_iteration=f"{per_it['unsharded']:.4f}",
             primal_host_f64=f"{one['kkt'][0]:.4e}", unsharded_primal=f"{ref['kkt'][0]:.4e}",
             dual_host_f64=f"{one['kkt'][1]:.4e}", unsharded_dual=f"{ref['kkt'][1]:.4e}",
@@ -3013,18 +3074,43 @@ def phase_mesh_world1(torch, np, device, main_result, window, lu):
         shard = column_shard(mesh, A_d.shape[1], device)
         A_s, c_s, cand_s = shard.take(A_d), shard.take(c_d), shard.take(cand_d)
         state_s = shard_state(mesh, state0, A_d.shape[1])
+        captured = graphs.ChunkGraphs()
         runs = {
             "unsharded": unsharded,
             "sharded": timed(lambda ch: sharded_run_chunk(
                 shard, state_s, A_s, A_s, c_s, cand_s, chunk=ch, **kw)),
+            "sharded_graph": timed(lambda ch: captured.run_chunk(
+                state_s, A_s, A_s, c_s, cand_s, chunk=ch, shard=shard, **kw)),
         }
         per_pivot = _marginal_ms_per_pivot(torch, np, runs, reps=4)
-        sharded.COLLECTIVES = 0
-        _t, chunk_pivots = runs["sharded"](60)
-        per_chunk = sharded.COLLECTIVES
-        busy_ms, launches, _top, _host = _device_busy(
-            torch, lambda: runs["sharded"](60), chunk_pivots)
+        # The graphed sharded chunk against the eager one from the same
+        # state: the same bits, and the collectives a replay counts (what
+        # its capture counted) those of the eager chunk.
+        profiled = {}
+        for path in ("sharded", "sharded_graph"):
+            sharded.COLLECTIVES = 0
+            _t, chunk_pivots = runs[path](60)
+            per_chunk = sharded.COLLECTIVES
+            busy_ms, launches, _top, host = _device_busy(
+                torch, lambda: runs[path](60), chunk_pivots)
+            profiled[path] = dict(collectives=per_chunk, pivots=chunk_pivots,
+                                  busy_ms=busy_ms, launches=launches,
+                                  host=sum(host.values()))
+        _check(profiled["sharded"]["collectives"] == profiled["sharded_graph"]["collectives"],
+               f"mesh/chunk: collectives {profiled}")
+        eager_state = sharded_run_chunk(shard, state_s, A_s, A_s, c_s, cand_s, chunk=60, **kw)
+        graph_state = captured.run_chunk(state_s, A_s, A_s, c_s, cand_s, chunk=60,
+                                         shard=shard, **kw)
+        differ = [name for name, g, e in zip(eager_state._fields, graph_state, eager_state)
+                  if not (g.dtype == e.dtype and torch.equal(
+                      g.reshape(-1).view(torch.uint8), e.reshape(-1).view(torch.uint8)))]
+        _check(not differ, f"mesh/chunk: the graphed sharded chunk differs in {differ}")
+        chunk_pivots = profiled["sharded"]["pivots"]
+        per_chunk = profiled["sharded"]["collectives"]
+        busy_ms, launches = profiled["sharded"]["busy_ms"], profiled["sharded"]["launches"]
         idle = 1.0 - busy_ms / per_pivot["sharded"][0] if busy_ms else None
+        graph = profiled["sharded_graph"]
+        graph_busy_over_wall = graph["busy_ms"] / per_pivot["sharded_graph"][0]
         # The two collectives of a pivot alone: 200 calls each at the
         # chunk's sizes (the entering choice; the column with c_q and c_B).
         pick = torch.zeros(3, dtype=torch.float64, device=device)
@@ -3054,10 +3140,25 @@ def phase_mesh_world1(torch, np, device, main_result, window, lu):
             sharded_device_busy_ms_per_pivot=(f"{busy_ms:.4f}" if busy_ms
                                               else "not measured"),
             sharded_device_idle_share=f"{idle:.3f}" if idle is not None else "not measured",
+            sharded_host_launches_per_pivot=(
+                f"{profiled['sharded']['host'] / chunk_pivots:.3f}"),
+            graph_ms_per_pivot=f"{per_pivot['sharded_graph'][0]:.4f}",
+            graph_q1_q3="/".join(f"{q:.4f}" for q in per_pivot["sharded_graph"][1:3]),
+            graph_bitwise_eager=True,
+            graph_collectives_per_pivot=f"{graph['collectives'] / graph['pivots']:.3f}",
+            graph_launches_per_pivot=f"{graph['launches'] / graph['pivots']:.1f}",
+            graph_host_launches_per_pivot=f"{graph['host'] / graph['pivots']:.3f}",
+            graph_device_busy_ms_per_pivot=(f"{graph['busy_ms']:.4f}" if graph["busy_ms"]
+                                            else "not measured"),
+            # The profiler traces every node of a graph: its busy time can
+            # sum above the unprofiled wall time, and then no idle share.
+            graph_device_idle_share=(f"{1.0 - graph_busy_over_wall:.3f}"
+                                     if 0 < graph_busy_over_wall <= 1 else "not measured"),
+            graph_captures=len(captured._entries), **_CARD,
         )
         _timed("mesh/lu", phase_mesh_lu, torch, mesh, lu, window)
     finally:
-        dist.destroy_process_group()
+        shutdown_multihost()  # the group's captured steps, then the groups
     _check("fused_price_scan" in kept, "mesh/world1 never called the scan")
 
     return lambda: _replay_scan(torch, "mesh/kernel", kept["fused_price_scan"][0])

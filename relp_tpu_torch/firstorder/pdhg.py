@@ -13,12 +13,13 @@ Differences from the JAX code, and why:
 * ``pdhg_solve`` takes its torch ``device``: ``None`` means CUDA (and
   raises without a card, like every entry point of the port); ``"cpu"``
   must be asked for.  ``solve_first_order`` passes ``torch_device(cfg)``.
-* A chunk is a loop of torch ops; on a card, with no mesh, it is captured
-  once as a CUDA graph and replayed (``simplex/graphs.py``), on the CPU and
-  under a mesh it runs eagerly.  Its carry (``PdhgCarry``) holds the
-  Halpern counter ``k0`` and the step sizes as 0-d device tensors, as the
-  JAX chunk traces them as arrays, so one graph serves every chunk and
-  restart.  The Halpern weights ``(k0+i+1)/(k0+i+2)`` are divided in f64
+* A chunk is a loop of torch ops; on a card it is captured once as a CUDA
+  graph and replayed (``simplex/graphs.py``), under a mesh with the grid's
+  reductions (``_Grid``, a static argument of the chunk) captured as its
+  all_reduces; on the CPU, and so under gloo, it runs eagerly.  Its carry
+  (``PdhgCarry``) holds the Halpern counter ``k0`` and the step sizes as
+  0-d device tensors, as the JAX chunk traces them as arrays, so one graph
+  serves every chunk and restart.  The Halpern weights ``(k0+i+1)/(k0+i+2)`` are divided in f64
   on the device from exact integers and cast to ``A.dtype``, as the JAX
   chunk forms each in its default float type and casts it.
 * ``mesh`` shards A in 2-D, rows over "batch" and columns over "col",
@@ -157,7 +158,7 @@ class _Grid:
     def gather(self, v, group, parts: int):
         from relp_tpu_torch.parallel.sharded import all_gather
 
-        return torch.cat(all_gather(v, group, parts))
+        return all_gather(v, group, parts).reshape(-1)
 
 
 _LOCAL = _Local()
@@ -340,14 +341,13 @@ def pdhg_solve(
     step = 0.9 / norm_A
     w = min(max(w0, 1e-4), 1e4)
 
-    # A chunk replayed from its graph on a card without a mesh, else eager.
-    captured = (graphs.ChunkGraphs()
-                if mesh is None and dev.type in graphs.DEVICE_TYPES else None)
+    # A chunk replayed from its graph on a card, else eager.
+    captured = graphs.ChunkGraphs() if dev.type in graphs.DEVICE_TYPES else None
     inputs = dict(A=A, b=b, c=c, u=u)
 
     def run_chunk(carry: PdhgCarry) -> PdhgChunkOut:
         if captured is not None:
-            return captured.run(_pdhg_chunk, carry, inputs, chunk=chunk)
+            return captured.run(_pdhg_chunk, carry, inputs, chunk=chunk, ops=ops)
         return _pdhg_chunk(carry, **inputs, chunk=chunk, ops=ops)
 
     x = torch.zeros_like(c)

@@ -4,8 +4,9 @@
   batch dimension with per-LP freezing) and the batched-pivot kernel hook.
 * :mod:`relp_tpu_torch.parallel.batch_driver` — ``solve_batch``: many LPs
   in lockstep, certified per LP.
-* :mod:`relp_tpu_torch.parallel.mesh` — ``initialize_multihost`` and
-  ``make_mesh`` over ``torch.distributed`` (NCCL on CUDA, gloo on the CPU).
+* :mod:`relp_tpu_torch.parallel.mesh` — ``initialize_multihost``,
+  ``make_mesh`` and ``shutdown_multihost`` over ``torch.distributed`` (NCCL
+  on CUDA, gloo on the CPU).
 * :mod:`relp_tpu_torch.parallel.sharded` — column sharding of the tableau
   with the collectives written out; ``solve_relaxation``, ``solve_batch``,
   ``pdhg_solve``, ``solve_first_order`` and ``solve_mip`` take ``mesh=``.
@@ -18,7 +19,12 @@ from relp_tpu_torch.parallel.batch import (
     megakernel_run_chunk,
 )
 from relp_tpu_torch.parallel.batch_driver import solve_batch
-from relp_tpu_torch.parallel.mesh import default_mesh, initialize_multihost, make_mesh
+from relp_tpu_torch.parallel.mesh import (
+    default_mesh,
+    initialize_multihost,
+    make_mesh,
+    shutdown_multihost,
+)
 from relp_tpu_torch.parallel.sharded import (
     column_shard,
     shard_batch_problem,
@@ -42,5 +48,6 @@ __all__ = [
     "shard_problem",
     "shard_state",
     "sharded_run_chunk",
+    "shutdown_multihost",
     "solve_batch",
 ]

@@ -23,17 +23,29 @@ Differences from the JAX driver:
 * There is no persistent compile cache to enable: the port compiles no
   program, and its kernel library is cached by source hash.  What the JAX
   package jits at module scope, the port captures once a process: on a
-  card with no mesh, ``_batch_step`` (both routes), the dual chunk and the
-  polish chunk replay CUDA graphs from ``graphs.steps()``, the process-wide
-  cache bounded by bytes, so that repeated calls of one shape (a MIP's
-  node waves) capture each once; a step runs eagerly at its key's first
-  use, so that a one-off call pays no capture for a step it takes once.
-  The cache keeps a shared tableau as one (M, N) slice and reads B stacked
+  card, ``_batch_step`` (both routes), the dual chunk and the polish chunk
+  replay CUDA graphs from ``graphs.steps()``, the process-wide cache
+  bounded by bytes, so that repeated calls of one shape (a MIP's node
+  waves) capture each once; a step runs eagerly at its key's first use,
+  so that a one-off call pays no capture for a step it takes once.  The
+  cache keeps a shared tableau as one (M, N) slice and reads B stacked
   tableaus in place, releasing them when the call's steps are done.  The
   batched refactorization (``_v_refactor``: torch's batched ``inv_ex``)
   stays eager on every device: at the families' shapes torch runs it
-  through MAGMA, which a capture refuses.  The CPU and a mesh run every
-  step eagerly.
+  through MAGMA, which a capture refuses.  The CPU, and so gloo, runs
+  every step eagerly.
+* Under a mesh on cards the sharded steps replay too, their collectives
+  captured, from ``graphs.steps(group)``, the cache of the mesh's column
+  group.  Its keys hold the shard by value (``ColumnShard`` equality), so
+  a second call of one shape under one mesh replays the first call's
+  graphs.  Every rank of the group must capture, replay or run eagerly
+  the same step at the same point, or their collectives stop matching:
+  the ranks run the same steps in the same order (the host's loop
+  decisions are all-reduced), so the keys' first and second uses fall
+  alike, and the one fact that differs between ranks, the bytes the cache
+  holds (column blocks of different widths when N is not a multiple of
+  the ranks), is agreed before every eviction as its largest value over
+  the group (a MAX all_reduce on the host).
 * The report of each chunk is the host's one read per chunk; the chunk
   itself reads nothing on CUDA.
 """
@@ -77,9 +89,15 @@ from relp_tpu_torch.utils.logging import get_logger
 _log = get_logger("batch")
 
 
+def _steps(shard):
+    """The cache of captured steps: the process-wide one, or under a mesh
+    the one of the shard's column group."""
+    return graphs.steps(None if shard is None else shard.group)
+
+
 def run_step(body, state, inputs, *, graphed: bool, must_launch=None, **static):
     """``body(state, **inputs, **static)``: replayed from the process-wide
-    cache of captured steps when ``graphed`` (a card, no mesh), with the
+    cache of captured steps when ``graphed`` (a card), with the
     fixed-length loop (``early_exit=False``); else run eagerly.  A stacked
     tableau (three dimensions, batch stride not 0) is read in place, not
     copied into the cache; ``solve_batch`` releases it when its steps are
@@ -87,8 +105,9 @@ def run_step(body, state, inputs, *, graphed: bool, must_launch=None, **static):
     if graphed:
         stacked = tuple(role for role, x in inputs.items()
                         if x.dim() == 3 and x.stride(0) != 0)
-        return graphs.steps().run(body, state, inputs, must_launch=must_launch,
-                                  bound=stacked, early_exit=False, **static)
+        return _steps(static.get("shard")).run(
+            body, state, inputs, must_launch=must_launch, bound=stacked,
+            early_exit=False, **static)
     return body(state, **inputs, **static)
 
 
@@ -306,7 +325,7 @@ def solve_batch(
     use_megakernel = megakernel_applicable(
         A, cfg.dtype, cfg.scan_dtype, pricing, mesh
     )
-    graphed = mesh is None and device.type in graphs.DEVICE_TYPES
+    graphed = device.type in graphs.DEVICE_TYPES
     if not use_megakernel:
         _log.info(
             "no batched-pivot kernel takes %s (dtype %s, scan %s, pricing "
@@ -517,7 +536,7 @@ def solve_batch(
     batch, final_residual = refactor(batch, c2)
     final_residual = final_residual.cpu().numpy()
     if graphed:  # the steps that read a stacked tableau in place go with it
-        graphs.steps().release(A, A_scan)
+        _steps(shard).release(A, A_scan)
     _t("final refactor", _t3)
 
     wall = time.time() - t0

@@ -12,7 +12,8 @@ inserts in the JAX package are written out in
 Launch several processes with ``torchrun --nproc-per-node K script.py``
 (each calls ``initialize_multihost()`` with no arguments), or pass the
 coordinator's address, the world size and the rank explicitly.  A process
-started any other way is a world of one.
+started any other way is a world of one.  :func:`shutdown_multihost` ends
+it.
 """
 
 from __future__ import annotations
@@ -82,6 +83,17 @@ def initialize_multihost(
     dist.init_process_group(
         backend, init_method=init_method, world_size=world, rank=rank
     )
+
+
+def shutdown_multihost() -> None:
+    """End what :func:`initialize_multihost` started: drop the captured
+    steps of every mesh's column group (``simplex.graphs.release_group``;
+    their graphs hold the group's collectives), then destroy every process
+    group.  The counterpart of ``jax.distributed.shutdown``."""
+    from relp_tpu_torch.simplex import graphs
+
+    graphs.release_group()
+    dist.destroy_process_group()
 
 
 def _device_type() -> str:

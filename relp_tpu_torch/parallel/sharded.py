@@ -30,14 +30,20 @@ rotation of the pricing rules.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-# Collective calls since the last reset (each all_gather / all_reduce).
+# Collective calls since the last reset (each all_gather / all_reduce).  A
+# captured chunk counts its collectives at capture; every replay adds what
+# its capture counted (``simplex.graphs.launch_counts``).
 COLLECTIVES = 0
+
+# ``all_gather_single`` where torch has it (it deprecates the older name).
+_ALL_GATHER_INTO_TENSOR = (getattr(dist, "all_gather_single", None)
+                           or dist.all_gather_into_tensor)
 
 
 def all_reduce(t: torch.Tensor, group=None, op=None) -> torch.Tensor:
@@ -48,13 +54,18 @@ def all_reduce(t: torch.Tensor, group=None, op=None) -> torch.Tensor:
     return t
 
 
-def all_gather(t: torch.Tensor, group, size: int) -> List[torch.Tensor]:
-    """The group's ``size`` copies of ``t``'s shape, in rank order, counted."""
+def all_gather(t: torch.Tensor, group, size: int) -> torch.Tensor:
+    """The group's ``size`` copies of ``t``'s shape (at least one
+    dimension), stacked in rank order into one (size, *t.shape) tensor,
+    counted.  One collective into one tensor, no list of outputs: NCCL's
+    list form allocates and copies inside the process group, which a
+    captured graph must not do."""
     global COLLECTIVES
     COLLECTIVES += 1
-    parts = [torch.empty_like(t) for _ in range(size)]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return parts
+    t = t.contiguous()
+    out = t.new_empty((size * t.shape[0], *t.shape[1:]))
+    _ALL_GATHER_INTO_TENSOR(out, t, group=group)
+    return out.view(size, *t.shape)
 
 
 def _bounds(n: int, parts: int, index: int):
@@ -80,6 +91,19 @@ class ColumnShard:
         self.widths = [_bounds(N, size, r)[1] - _bounds(N, size, r)[0]
                        for r in range(size)]
         self.ids = torch.arange(self.lo, self.hi, device=self.device)
+
+    # A shard is a static argument of a captured chunk or step, part of its
+    # key (simplex/graphs.py): equal shards make equal keys, so that the
+    # steps of a second ``solve_batch`` call under one mesh, which makes a
+    # new shard, replay the first call's graphs.
+    def _identity(self):
+        return self.group, self.size, self.rank, self.N, str(self.device)
+
+    def __eq__(self, other):
+        return isinstance(other, ColumnShard) and self._identity() == other._identity()
+
+    def __hash__(self):
+        return hash(self._identity())
 
     # --- placement ---
 
@@ -117,7 +141,7 @@ class ColumnShard:
             (loc + self.lo).to(torch.float64),
             any_local.to(torch.float64),
         ])
-        g = torch.stack(all_gather(packed, self.group, self.size))  # (ranks, 3, ...)
+        g = all_gather(packed, self.group, self.size)  # (ranks, 3, ...)
         win = torch.argmax(g[:, 0], dim=0, keepdim=True)  # first max: lowest rank
         q = torch.take_along_dim(g[:, 1], win, dim=0)[0].to(torch.int64)
         return q, g[:, 2].amax(dim=0) > 0

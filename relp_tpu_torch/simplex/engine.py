@@ -7,10 +7,12 @@
 * :class:`DoubleFloatEngine`: the double-float (two-f32) carry of
   ``simplex/df_kernels.py``, ``carry="df32"``.
 
-On a CUDA card, with no mesh, every engine runs its chunks (the dense
-engine's primal and dual ones) as captured CUDA graphs
-(``simplex/graphs.py``); on the CPU and under a mesh they run eagerly.
-Refactorization, ``recompute_gamma`` and the forced pivot stay eager.
+On a CUDA card every engine runs its chunks (the dense engine's primal and
+dual ones) as captured CUDA graphs (``simplex/graphs.py``); under a mesh
+the dense and LU chunks too, their collectives captured with them (the
+shard is a static argument of the chunk).  On the CPU, and so under gloo,
+they run eagerly.  Refactorization, ``recompute_gamma`` and the forced
+pivot stay eager.
 """
 
 from __future__ import annotations
@@ -58,10 +60,9 @@ class _CapturedChunks:
     _graphs: Optional[graphs.ChunkGraphs] = None
 
     def _chunk_graphs(self, state) -> Optional[graphs.ChunkGraphs]:
-        """This engine's captured chunks when ``state`` lies on a card and
-        the columns are not sharded; None when the chunk runs eagerly (the
-        CPU, and a mesh: capturing its collectives is not done)."""
-        if self.shard is not None or state[0].device.type not in graphs.DEVICE_TYPES:
+        """This engine's captured chunks when ``state`` lies on a card,
+        sharded or not; None when the chunk runs eagerly (the CPU)."""
+        if state[0].device.type not in graphs.DEVICE_TYPES:
             return None
         if self._graphs is None:
             self._graphs = graphs.cache()
@@ -223,11 +224,8 @@ class DenseEngine(_CapturedChunks):
             noisy_scan=kernels.noisy_f32_matmul(),
         )
         captured = self._chunk_graphs(state)
-        if captured is not None:
-            return captured.run_chunk(state, A_scan, A_full, c, candidate_mask, **kw)
-        return kernels.run_chunk(
-            state, A_scan, A_full, c, candidate_mask, shard=self.shard, **kw
-        )
+        run = kernels.run_chunk if captured is None else captured.run_chunk
+        return run(state, A_scan, A_full, c, candidate_mask, shard=self.shard, **kw)
 
     def dual_run_chunk(self, state, A_scan, A_full, c, candidate_mask, cfg):
         if self.shard is not None:
@@ -319,11 +317,8 @@ class LUEngine(_CapturedChunks):
             stop_at_zero=stop_at_zero, eta0=int(state.eta_count),
         )
         captured = self._chunk_graphs(state)
-        if captured is not None:
-            return captured.lu_run_chunk(state, A_scan, A_full, c, candidate_mask, **kw)
-        return lu_mod.lu_run_chunk(
-            state, A_scan, A_full, c, candidate_mask, shard=self.shard, **kw
-        )
+        run = lu_mod.lu_run_chunk if captured is None else captured.lu_run_chunk
+        return run(state, A_scan, A_full, c, candidate_mask, shard=self.shard, **kw)
 
     def recompute_gamma(self, state, A_scan):
         # gamma_j = 1 + ||B^-1 a_j||^2 from the B0 factors alone, which is

@@ -60,16 +60,16 @@ batch step: that and its report, a tensor).
   and the capture are timed together.
 * **Launch counts**: a kernel wrapper counts a launch when its Python
   runs, which happens at capture only.  An entry records what its capture
-  counted on every counter (the scan's, in all and by dtype, and the two
-  batched-pivot kernels'), and each replay adds that, so every counter
-  stays what eager execution gives; the warm-up's and the capture's own
-  counts are taken back.  A replay's count is this bookkeeping, not an
-  observation of the replay: what shows that a replay ran the kernel is
-  its output, equal to the eager step's bit for bit, or a profiler trace
-  of the replay.  A capture on CUDA of a body that must launch a kernel
-  (``must_launch``: the scan for a steepest-edge dense primal or df32
-  chunk, the batched-pivot kernel of the kernel route's step) that
-  counted no launch of it raises.
+  counted on every counter (the scan's, in all and by dtype, the two
+  batched-pivot kernels', and the mesh's collectives), and each replay
+  adds that, so every counter stays what eager execution gives; the
+  warm-up's and the capture's own counts are taken back.  A replay's
+  count is this bookkeeping, not an observation of the replay: what shows
+  that a replay ran the kernel is its output, equal to the eager step's
+  bit for bit, or a profiler trace of the replay.  A capture on CUDA of a
+  body that must launch a kernel (``must_launch``: the scan for a
+  steepest-edge dense primal or df32 chunk, the batched-pivot kernel of
+  the kernel route's step) that counted no launch of it raises.
 * **Lifetime**: a cache belongs to one engine, and so to one solve of one
   rung (or to one ``pdhg_solve`` call); its graphs, their memory pools and
   its static buffers go with it.  Inside ``shared(cache)`` every engine
@@ -88,6 +88,29 @@ batch step: that and its report, a tensor).
   the least recently used entries, each with its graph, its memory pool,
   its static outputs and the static input buffers no other entry uses.
 
+* **Meshes**: under a mesh the chunks and steps are captured as without
+  one, with their collectives (``parallel.sharded``'s all_reduce and
+  all_gather, NCCL's kernels) inside the graph: the dense and LU chunks
+  and the batch steps take the rank's ``ColumnShard`` as a static
+  argument, the PDHG chunk its ``_Grid``.  The one-iteration warm-up runs
+  the collectives eagerly first, so the communicator exists before the
+  capture; a capture with a process group up refuses unsafe calls of its
+  own thread only (``thread_local``), since the process group's watchdog
+  thread queries CUDA events meanwhile.  Every rank of a group must
+  capture, replay or run eagerly the same chunk at the same point, or the
+  collectives of different ranks stop matching.  An engine's cache and a
+  ``pdhg_solve`` call's capture every key at its first use, and every
+  rank sees the same keys in the same order (the ring's fill ``eta0`` is
+  replicated), so they decide alike.  The steps of a mesh go to a cache of
+  their own, ``steps(group)`` for the column group of their shard, whose
+  decisions rest on the order of keys, the same on every rank, and on one
+  fact that is not: the bytes it holds.  Before every eviction its ranks
+  agree on that as its largest value over the group.  Each such cache has
+  a bound of ``STEP_CACHE_BYTES`` of its own and lives until
+  ``release_group`` drops it, which ``parallel.shutdown_multihost`` does
+  for every group before it destroys the process groups.  On the CPU
+  (gloo) everything runs eagerly, as without a mesh.
+
 An error in a capture or a replay propagates: nothing falls back to eager
 execution or to a kernel's plain version.
 """
@@ -102,6 +125,7 @@ from collections import Counter, OrderedDict
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
 from relp_tpu_torch.ops import batch_pivot, price_scan
@@ -120,14 +144,20 @@ REPLAYS = 0
 CAPTURE_SECONDS = 0.0
 EVICTIONS = 0
 
-# The bytes the process-wide cache of the batch driver's steps may hold
-# (graph pools, static buffers, tensors read in place), a twentieth of an
-# 80 GB card.  chip_smoke's paths hold at most a few hundred MB
-# (``step_cache_MB`` on its lines; PERF.md).
+# The bytes each cache of the batch driver's steps may hold (graph pools,
+# static buffers, tensors read in place), a twentieth of an 80 GB card:
+# the process-wide cache of unsharded steps, and each column group's cache
+# of sharded steps, each bounded alone, so that a process holds at most
+# this times one more than the groups whose caches are up
+# (``release_group`` drops a group's).  chip_smoke's paths hold at most a
+# few hundred MB (``step_cache_MB`` on its lines; PERF.md).
 STEP_CACHE_BYTES = 4 << 30
 # Keys the cache of steps remembers having run once (eagerly).
 _SEEN_LIMIT = 4096
 _STEPS: Optional["ChunkGraphs"] = None
+# The caches of sharded steps, one for each process group of a mesh's
+# columns, each until ``release_group``.
+_GROUP_STEPS: Dict[Any, "ChunkGraphs"] = {}
 
 # One capture stream a card, reused by every cache (a new stream would get
 # cuBLAS workspaces of its own).
@@ -153,12 +183,34 @@ def cache() -> "ChunkGraphs":
     return _SHARED.get() or ChunkGraphs()
 
 
-def steps() -> "ChunkGraphs":
-    """The process-wide, bounded cache of the batch driver's steps."""
+def steps(group=None) -> "ChunkGraphs":
+    """The process-wide, bounded cache of the batch driver's steps; with
+    ``group`` (the process group of a mesh's columns) the cache of the
+    steps sharded over that group, whose ranks agree on every eviction,
+    bounded by ``STEP_CACHE_BYTES`` of its own and kept until
+    ``release_group(group)``."""
     global _STEPS
+    if group is not None:
+        cache = _GROUP_STEPS.get(group)
+        if cache is None:
+            cache = _GROUP_STEPS[group] = ChunkGraphs(
+                max_bytes=STEP_CACHE_BYTES, second_use=True, group=group)
+        return cache
     if _STEPS is None:
         _STEPS = ChunkGraphs(max_bytes=STEP_CACHE_BYTES, second_use=True)
     return _STEPS
+
+
+def release_group(group=None) -> None:
+    """Drop the cache of the steps sharded over ``group`` (every group's
+    with None): its graphs, memory pools and static buffers.  Its graphs
+    hold the group's collectives, so a process drops them before it
+    destroys the group; ``parallel.shutdown_multihost`` does so for every
+    group."""
+    for key in ([group] if group is not None else list(_GROUP_STEPS)):
+        cache = _GROUP_STEPS.pop(key, None)
+        if cache is not None:
+            cache.clear()
 
 
 def _signature(x: torch.Tensor) -> Tuple:
@@ -179,19 +231,26 @@ def _reserved(device: torch.device) -> int:
 def launch_counts() -> Dict[str, int]:
     """Every kernel wrapper's launch counter: the scan's in all
     (``"scan"``) and by dtype (``"scan_<dtype>"``), the batched-pivot
-    kernels' (``"resident"``, ``"blocked"``)."""
+    kernels' (``"resident"``, ``"blocked"``); and the mesh's collectives
+    (``"collectives"``, ``parallel.sharded.COLLECTIVES``)."""
+    from relp_tpu_torch.parallel import sharded  # the package imports this module
+
     return {"scan": price_scan.LAUNCHES,
             **{f"scan_{name}": n for name, n in price_scan.LAUNCHES_BY_DTYPE.items()},
             "resident": batch_pivot.LAUNCHES_RESIDENT,
-            "blocked": batch_pivot.LAUNCHES_BLOCKED}
+            "blocked": batch_pivot.LAUNCHES_BLOCKED,
+            "collectives": sharded.COLLECTIVES}
 
 
 def _set_launch_counts(counts: Dict[str, int]) -> None:
+    from relp_tpu_torch.parallel import sharded
+
     price_scan.LAUNCHES = counts["scan"]
     for name in price_scan.LAUNCHES_BY_DTYPE:
         price_scan.LAUNCHES_BY_DTYPE[name] = counts[f"scan_{name}"]
     batch_pivot.LAUNCHES_RESIDENT = counts["resident"]
     batch_pivot.LAUNCHES_BLOCKED = counts["blocked"]
+    sharded.COLLECTIVES = counts["collectives"]
 
 
 class _Slot:
@@ -238,11 +297,15 @@ class _Entry:
 class ChunkGraphs:
     """Captured chunks: one engine's, or the process-wide cache of the
     batch driver's steps (see the module docstring), with ``max_bytes``,
-    the bytes it holds at most, and ``second_use``, capture at a key's
-    second use."""
+    the bytes it holds at most, ``second_use``, capture at a key's second
+    use, and ``group``, the process group whose ranks run this cache's
+    chunks in lockstep (they evict what the largest count over the group
+    evicts)."""
 
-    def __init__(self, max_bytes: Optional[int] = None, second_use: bool = False):
+    def __init__(self, max_bytes: Optional[int] = None, second_use: bool = False,
+                 group=None):
         self.max_bytes = max_bytes
+        self.group = group
         self._seen: Optional["OrderedDict[Tuple, None]"] = (
             OrderedDict() if second_use else None)
         self._slots: Dict[Tuple, _Slot] = {}
@@ -251,15 +314,16 @@ class ChunkGraphs:
     def run_chunk(self, state, A_scan, A_full, c, candidate_mask, *,
                   pricing: int, chunk: int, opt_tol: float, pivot_tol: float,
                   degen_tol: float, stop_at_zero: bool = False,
-                  noisy_scan: bool = False):
-        """``kernels.run_chunk`` (no shard) as a replayed graph."""
+                  noisy_scan: bool = False, shard=None):
+        """``kernels.run_chunk`` as a replayed graph (``shard``: this
+        rank's ``ColumnShard`` under a mesh, its collectives captured)."""
         return self.run(
             kernels.run_chunk, state,
             dict(A_scan=A_scan, A_full=A_full, c=c, candidate_mask=candidate_mask),
             must_launch="scan" if pricing == kernels.PRICE_STEEPEST else None,
             pricing=pricing, chunk=chunk, opt_tol=opt_tol, pivot_tol=pivot_tol,
             degen_tol=degen_tol, stop_at_zero=stop_at_zero, noisy_scan=noisy_scan,
-            early_exit=False,
+            shard=shard, early_exit=False,
         )
 
     def dual_run_chunk(self, state, A_scan, A_full, c, candidate_mask, *,
@@ -276,15 +340,17 @@ class ChunkGraphs:
     def lu_run_chunk(self, state, A_scan, A_full, c, candidate_mask, *,
                      pricing: int, chunk: int, opt_tol: float, pivot_tol: float,
                      degen_tol: float, stop_at_zero: bool = False,
-                     eta0: Optional[int] = None):
-        """``lu.lu_run_chunk`` (no shard) as a replayed graph, one per
-        ``eta0`` (the ring's fill at entry, read here when not given)."""
+                     eta0: Optional[int] = None, shard=None):
+        """``lu.lu_run_chunk`` as a replayed graph, one per ``eta0`` (the
+        ring's fill at entry, read here when not given); ``shard`` as for
+        ``run_chunk``."""
         return self.run(
             lu.lu_run_chunk, state,
             dict(A_scan=A_scan, A_full=A_full, c=c, candidate_mask=candidate_mask),
             pricing=pricing, chunk=chunk, opt_tol=opt_tol, pivot_tol=pivot_tol,
             degen_tol=degen_tol, stop_at_zero=stop_at_zero,
-            eta0=int(state.eta_count) if eta0 is None else eta0, early_exit=False,
+            eta0=int(state.eta_count) if eta0 is None else eta0, shard=shard,
+            early_exit=False,
         )
 
     def df_run_chunk(self, state, A_scan, Ah, Al, ch, cl, candidate_mask, *,
@@ -348,7 +414,7 @@ class ChunkGraphs:
                 body, static_state, static_inputs, static, must_launch,
                 (*state_keys, *input_keys.values()),
                 tuple(inputs[role] for role in bound if alias[role] == role))
-            self._evict()
+            self._evict(state[0].device)
         else:
             self._entries.move_to_end(key)
         entry.graph.replay()
@@ -373,13 +439,33 @@ class ChunkGraphs:
             del self._entries[key]
         self._prune()
 
-    def _evict(self) -> None:
+    def clear(self) -> None:
+        """Drop every entry, every static buffer and every key seen once."""
+        self._entries.clear()
+        self._slots.clear()
+        if self._seen is not None:
+            self._seen.clear()
+
+    def _evict(self, device: torch.device) -> None:
         global EVICTIONS
         while (self.max_bytes is not None and len(self._entries) > 1
-               and self.nbytes() > self.max_bytes):
+               and self._held(device) > self.max_bytes):
             self._entries.popitem(last=False)
             EVICTIONS += 1
             self._prune()
+
+    def _held(self, device: torch.device) -> int:
+        """``nbytes()``; with a group, the largest over its ranks (a MAX
+        all_reduce on the host, not counted among the solver's
+        collectives): ranks hold column blocks of different widths when N
+        is not a multiple of their number, and every rank must evict the
+        same entries, or one would capture (its warm-up running the
+        chunk's collectives) where another replays."""
+        if self.group is None:
+            return self.nbytes()
+        held = torch.tensor([self.nbytes()], dtype=torch.int64, device=device)
+        dist.all_reduce(held, op=dist.ReduceOp.MAX, group=self.group)
+        return int(held)
 
     def _prune(self) -> None:
         used = {k for entry in self._entries.values() for k in entry.slots}
@@ -410,7 +496,13 @@ class ChunkGraphs:
                 torch.cuda.synchronize(device)
             before = launch_counts()
             reserved = _reserved(device)
-            graph.capture_begin()
+            # With a process group up, the capture refuses unsafe calls of
+            # this thread only: ProcessGroupNCCL's watchdog thread queries
+            # the CUDA events of eager collectives, which a capture in the
+            # default global mode would take as its own error.
+            graph.capture_begin(capture_error_mode="thread_local"
+                                if dist.is_available() and dist.is_initialized()
+                                else "global")
             try:
                 outputs = body(state, **inputs, **static)
             finally:

@@ -8,16 +8,22 @@ draws: the expected objective below depends on it.
 ``scenario_family`` perturbs its right-hand side into a family of scenarios
 for ``solve_batch``, with the recipe of ``scripts/batch_scenarios.py``.
 ``synthetic_problem`` is the Gaussian LP of the kernel tests, as dense
-arrays.
+arrays.  ``RecordingGraph`` is the CPU's stand-in for a CUDA graph that the
+tests of captured chunks and steps replay through, in one process and in
+the mesh tests' gloo workers (``recording_graphs``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import hashlib
 from fractions import Fraction
 
 import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from relp_tpu_torch.data.elements import Objective, RangedConstraintRelation
 from relp_tpu_torch.data.general_form import GeneralForm, Variable, VariableType
@@ -232,8 +238,6 @@ def synthetic_start(m=32, n=64, pad=32, dtype=np.float64, seed=0, device="cpu"):
     """``synthetic_problem`` at its artificial start as the inputs of a
     chunk on ``device``: (state, A, c1, c2, candidate_mask), the state
     priced with the phase-1 costs c1."""
-    import torch
-
     from relp_tpu_torch.simplex.state import RUNNING, state_from_numpy
 
     A, b, c1, c2, cand, basis = synthetic_problem(m=m, n=n, pad=pad, dtype=dtype,
@@ -266,8 +270,6 @@ def chunk_case(kind, state, A, c, candidate_mask, chunk=60):
     ``relp_tpu_torch.simplex.kernels`` (and of ``graphs.ChunkGraphs``) to
     call.  The dual chunk starts from the basic values negated, so that it
     pivots."""
-    import torch
-
     from relp_tpu_torch.simplex.kernels import PRICE_STEEPEST
 
     tols = dict(opt_tol=1e-7, pivot_tol=1e-7)
@@ -292,8 +294,6 @@ def lu_start(m=32, n=64, pad=32, dtype=np.float32, seed=0, capacity=60, device="
     chunk on ``device``: (state, A, c1, c2, candidate_mask), the state with
     fresh factors of the start basis, an empty ring of ``capacity`` slots,
     priced with the phase-1 costs c1."""
-    import torch
-
     from relp_tpu_torch.simplex import lu
     from relp_tpu_torch.simplex.state import RUNNING
 
@@ -335,8 +335,6 @@ def body_case(kind, m, n, pad=128, seed=7, device="cpu", chunk=60):
     PDHG chunk from ``pdhg_lp(m, n, seed)`` scaled as ``pdhg_solve`` scales
     it, at a zero iterate with the Halpern counter at 200 and a primal
     weight of 2."""
-    import torch
-
     from relp_tpu_torch.firstorder import pdhg
     from relp_tpu_torch.ops.df32 import df_from_f64
     from relp_tpu_torch.simplex import df_kernels, lu
@@ -380,23 +378,24 @@ def body_case(kind, m, n, pad=128, seed=7, device="cpu", chunk=60):
 STEP_KINDS = ("kernel", "torch_float32", "torch_float64", "dual", "polish")
 
 
-def step_case(kind, family, device="cpu", chunk=25, stop_at_zero=True):
+def step_case(kind, family, device="cpu", chunk=25, stop_at_zero=True, mesh=None):
     """(body, state, inputs, static) of one of ``solve_batch``'s device
     steps (``STEP_KINDS``) on ``device``, for
     ``parallel.batch_driver.run_step(body, state, inputs, graphed=...,
     **static)`` (``static`` also holds the kernel route's ``must_launch``).
     The family (``scenario_family``'s keywords) is lowered as
     ``solve_batch`` lowers it, one tableau expanded over the batch, with
-    chip_smoke's batch configuration (pad 128).  The steps start from the
-    phase-1 start with fresh steepest-edge weights, on the phase-1 costs
-    with ``stop_at_zero``, else on the real costs; the dual chunk from the
-    optimal basis of the family's unperturbed base, refactorized as the
-    warm restart does (``family`` then wobbles enough that the scenarios
+    chip_smoke's batch configuration (pad 128); with ``mesh`` this rank's
+    scenarios and column block of it, as ``solve_batch(mesh=...)`` places
+    them, the shard in ``static`` (the batched torch path and the polish
+    chunk only: the kernels and the dual chunk do not run under a mesh).
+    The steps start from the phase-1 start with fresh steepest-edge
+    weights, on the phase-1 costs with ``stop_at_zero``, else on the real
+    costs; the dual chunk from the optimal basis of the family's
+    unperturbed base, refactorized as the warm restart does (``family`` then wobbles enough that the scenarios
     need dual pivots: WARM_FAMILY); the polish chunk is the batched chunk
     at f64 on the f64 tableau with the real costs, from the f64 family's
     phase-1 start."""
-    import torch
-
     from relp_tpu_torch.config import SolverConfig
     from relp_tpu_torch.parallel import batch
     from relp_tpu_torch.parallel.batch_driver import _batch_step, cast_tableau, lower_batch
@@ -412,6 +411,19 @@ def step_case(kind, family, device="cpu", chunk=25, stop_at_zero=True):
         scenario_family(**family), cfg, device, shared_structure=True)
     mixed = cfg.scan_dtype not in ("same", cfg.dtype)
     A_scan = cast_tableau(A, scan_dtype(cfg)) if mixed else A
+    shard = None
+    if mesh is not None:
+        from relp_tpu_torch.parallel import sharded
+
+        if kind in ("kernel", "dual"):
+            raise ValueError(f"the {kind} step does not run under a mesh")
+        lo, hi = sharded.batch_block(mesh, A.shape[0])
+        shard = sharded.column_shard(mesh, A.shape[2], device)
+        A, b, c1, cand, A_scan_s = sharded.shard_batch_problem(
+            mesh, A, b, c1, cand, A_scan=A_scan if mixed else None)
+        A_scan = A_scan_s if mixed else A
+        c2 = shard.take(c2[lo:hi])
+        st = sharded.shard_batch_state(mesh, st)
     tols = dict(opt_tol=cfg.opt_tol, pivot_tol=cfg.pivot_tol)
     if kind == "dual":
         gf, counts = scenario_base(family["m"], family["n"], family["seed"])
@@ -436,13 +448,93 @@ def step_case(kind, family, device="cpu", chunk=25, stop_at_zero=True):
     if kind == "polish":
         return (batch.batched_run_chunk, st,
                 dict(A_scan=A, A_full=A, c=c2, candidate_mask=cand),
-                dict(primal, shard=None))
+                dict(primal, shard=shard))
     mega = kind == "kernel"
     static = dict(primal, stop_at_zero=stop_at_zero, hi_scan=False, mega=mega,
                   newton_steps=3 if dtype == "float64" else 1, feas_tol=cfg.feas_tol,
-                  refactor_period=0, use_steepest=True, shard=None)
+                  refactor_period=0, use_steepest=True, shard=shard)
     if mega:
         static["must_launch"] = batch._megakernel_variant(A.shape)
     return (_batch_step, st,
             dict(A_scan=A_scan, A=A, b=b, c=c1 if stop_at_zero else c2, cand=cand),
             static)
+
+
+# What a CUDA graph capture cannot hold: a host read of a value, a tensor
+# made from host data, an output whose size depends on the data.
+_REFUSED = {torch.ops.aten._local_scalar_dense.default, torch.ops.aten.lift_fresh.default,
+            torch.ops.aten.lift_fresh_copy.default, torch.ops.aten.nonzero.default}
+
+
+def _wait(func, out) -> None:
+    """Wait for the ``Work`` that a collective (a ``c10d`` op, under gloo
+    run on gloo's own threads) returns last, before anything reads its
+    result."""
+    if func.namespace == "c10d":
+        out[-1].wait()
+
+
+class _Recorder(TorchDispatchMode):
+    def __init__(self, ops):
+        super().__init__()
+        self.ops = ops
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in _REFUSED:
+            raise RuntimeError(f"{func} inside a capture")
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        _wait(func, out)
+        self.ops.append((func, args, kwargs, out))
+        return out
+
+
+class RecordingGraph:
+    """The CPU's stand-in for ``torch.cuda.CUDAGraph``: between
+    ``capture_begin`` and ``capture_end`` it records every aten op the
+    chunk runs, and every collective (``c10d`` op: ``allreduce_``,
+    ``_allgather_base_``), with the tensors it reads and writes, and its
+    ``replay`` runs them again in order on the same tensors, each result
+    written into the tensor the capture made, each collective waited for.
+    Like a CUDA graph it fixes every tensor's identity at capture and
+    refuses what a capture refuses: a read of a tensor's value on the host
+    and a tensor made from host data."""
+
+    def __init__(self):
+        self.ops = []
+        self._mode = None
+
+    def capture_begin(self, *args, **kwargs):
+        self._mode = _Recorder(self.ops)
+        self._mode.__enter__()
+
+    def capture_end(self):
+        self._mode.__exit__(None, None, None)
+
+    def replay(self):
+        for func, args, kwargs, out in self.ops:
+            again = func(*args, **kwargs)
+            _wait(func, again)
+            for kept, new in zip(tree_leaves(out), tree_leaves(again)):
+                # A view or an in-place result shares the kept storage; a
+                # kept tensor may have been reshaped in place since (the
+                # vector-matrix product squeezes its mm's output).
+                if (isinstance(kept, torch.Tensor) and kept.untyped_storage().data_ptr()
+                        != new.untyped_storage().data_ptr()):
+                    kept.copy_(new.reshape(kept.shape))
+
+
+@contextlib.contextmanager
+def recording_graphs():
+    """``simplex.graphs`` with ``RecordingGraph`` as its graph type and the
+    CPU among the captured devices, its caches of steps empty, inside the
+    block; as it was after it."""
+    from relp_tpu_torch.simplex import graphs
+
+    kept = graphs.Graph, graphs.DEVICE_TYPES, graphs._STEPS, graphs._GROUP_STEPS
+    graphs.Graph, graphs.DEVICE_TYPES = RecordingGraph, ("cuda", "cpu")
+    graphs._STEPS, graphs._GROUP_STEPS = None, {}
+    try:
+        yield
+    finally:
+        graphs.Graph, graphs.DEVICE_TYPES, graphs._STEPS, graphs._GROUP_STEPS = kept

@@ -439,11 +439,9 @@ def test_two_calls_of_one_shape_capture_once(recording):
 
 
 def test_only_a_captured_device_without_a_mesh_replays(recording, monkeypatch):
-    """run_step replays only when asked; solve_batch asks on a device in
-    graphs.DEVICE_TYPES with no mesh: a mesh (a gloo world of one here) and
-    the CPU outside the tests run every step eagerly."""
-    from tests.test_torch_mesh import world_of_one
-
+    """Without a mesh, run_step replays only when asked, and solve_batch
+    asks on a device in graphs.DEVICE_TYPES: the CPU outside the tests runs
+    every step eagerly.  A mesh: the next test."""
     calls = []
     kept = batch_driver.run_step
 
@@ -460,8 +458,32 @@ def test_only_a_captured_device_without_a_mesh_replays(recording, monkeypatch):
     before = graphs.CAPTURES
     solve_batch(providers, _cfg(False))
     assert calls and not any(calls) and graphs.CAPTURES == before
-    monkeypatch.setattr(graphs, "DEVICE_TYPES", ("cuda", "cpu"))
-    calls.clear()
+
+
+def test_a_captured_device_replays_under_a_mesh_too(recording, monkeypatch):
+    """Under a mesh (a gloo world of one here) solve_batch asks run_step to
+    replay on a device in graphs.DEVICE_TYPES as it does without one, its
+    steps in the cache of the mesh's column group, not the unsharded
+    steps' cache; on a device outside DEVICE_TYPES it runs every step
+    eagerly."""
+    from tests.test_torch_mesh import world_of_one
+
+    calls = []
+    kept = batch_driver.run_step
+
+    def spy(body, state, inputs, *, graphed, **kw):
+        calls.append(graphed)
+        return kept(body, state, inputs, graphed=graphed, **kw)
+
+    monkeypatch.setattr(batch_driver, "run_step", spy)
+    providers = [PORT.parallel_provider(b2) for b2 in (6, 7)]
     with world_of_one() as mesh:
+        solve_batch(providers, _cfg(False, chunk_size=1), mesh=mesh)
+        assert graphs.steps(mesh.get_group("col"))._seen
+        assert calls and all(calls) and graphs.CAPTURES > 0
+        assert graphs._STEPS is None  # the unsharded steps' cache never made
+        monkeypatch.setattr(graphs, "DEVICE_TYPES", ("cuda",))
+        calls.clear()
+        before = graphs.CAPTURES
         solve_batch(providers, _cfg(False), mesh=mesh)
-    assert calls and not any(calls) and graphs.CAPTURES == before
+        assert calls and not any(calls) and graphs.CAPTURES == before

@@ -36,7 +36,11 @@ launches no kernel raises; solve_batch through graphs gives the eager
 call's results; and with a tableau per LP, whose steps read it in place,
 its peak memory stays within the largest graph pool and the cache's
 static buffers of the eager call's, and it keeps nothing allocated that
-the eager call does not.
+the eager call does not.  In an NCCL world of one the sharded dense and
+LU chunks, ``pdhg_solve(mesh=...)``, the sharded batch steps and
+``solve_batch(mesh=...)`` replay graphs with their collectives captured,
+bit for bit against eager, counting per replay the eager run's
+collectives and launches.
 """
 
 import os
@@ -708,3 +712,175 @@ def test_graphed_batch_with_stacked_tableaus_stays_within_one_pool_of_eager(
     assert not graphs.steps()._entries and graphs.steps().nbytes() == 0
     assert kept <= eager_kept
     graphs._STEPS = None
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """An NCCL world of one in this process (initialize_multihost with no
+    torchrun environment) and its (1, 1) mesh; the process group and the
+    caches of its sharded steps go at the end of the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL and the captured graphs run on one")
+    import torch.distributed as dist
+
+    from relp_tpu_torch.parallel import initialize_multihost, make_mesh, shutdown_multihost
+
+    env = {k: os.environ.pop(k) for k in ("MASTER_ADDR", "WORLD_SIZE", "RANK")
+           if k in os.environ}
+    initialize_multihost()
+    try:
+        assert dist.get_backend() == "nccl"
+        yield make_mesh((1, 1))
+    finally:
+        shutdown_multihost()
+        os.environ.update(env)
+
+
+def _sharded_chunk(mesh, name, args, kw):
+    """The chunk ``name`` (of ``kernels`` and ``graphs.ChunkGraphs``: the
+    dense ``run_chunk``, ``lu.lu_run_chunk`` as ``lu_run_chunk``) with its
+    column-sized inputs and state cut to the mesh's column block: (state,
+    args after the state, keywords with the shard)."""
+    from relp_tpu_torch.parallel import column_shard, shard_state
+
+    state, A_scan, A_full, c, mask = args
+    shard = column_shard(mesh, A_full.shape[1], A_full.device)
+    return (shard_state(mesh, state, A_full.shape[1]),
+            tuple(shard.take(x) for x in (A_scan, A_full, c, mask)),
+            dict(kw, shard=shard))
+
+
+def _counted(fn):
+    """fn()'s result and what it added to every counter of
+    graphs.launch_counts (the collectives among them)."""
+    from relp_tpu_torch.simplex import graphs
+
+    before = graphs.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v - before[k] for k, v in graphs.launch_counts().items()}
+
+
+@pytest.mark.parametrize("kind", ["steepest", "stop_at_zero", "float64", "bfloat16_scan",
+                                  "lu_steepest", "lu_steepest_eta", "lu_dantzig_eta"])
+def test_graphed_sharded_chunk_equals_eager_chunk(nccl_mesh, kind):
+    """The dense and the LU chunk column-sharded over the NCCL world of one,
+    replayed from a graph with its collectives captured, against the eager
+    sharded chunk from the same state, twice in a row: every field bitwise
+    equal, and a replay's collectives and scan launches those of the eager
+    chunk."""
+    from relp_tpu_torch.simplex import graphs, kernels, lu
+    from relp_tpu_torch.testing import LU_ETA0, chunk_case, lu_start, synthetic_start
+
+    m, n, pad = CHUNK_SHAPES["aligned"]
+    if kind.startswith("lu_"):
+        state, A, c1, _c2, mask = lu_start(m=m, n=n, pad=pad, seed=7, device="cuda")
+        kw = dict(pricing=kernels.PRICE_DANTZIG if "dantzig" in kind
+                  else kernels.PRICE_STEEPEST, chunk=40, opt_tol=1e-7, pivot_tol=1e-7,
+                  degen_tol=1e-7)
+        if kind.endswith("_eta"):  # etas in the ring at entry
+            state = lu.lu_run_chunk(state, A, A, c1, mask, **dict(kw, chunk=LU_ETA0))
+        name, args = "lu_run_chunk", (state, A, A, c1, mask)
+        eager_body = lu.lu_run_chunk
+    else:
+        state, A, c1, _c2, mask = synthetic_start(m=m, n=n, pad=pad, dtype=np.float32,
+                                                  seed=7, device="cuda")
+        name, args, kw = chunk_case(kind, state, A, c1, mask, chunk=40)
+        eager_body = kernels.run_chunk
+    state, rest, kw = _sharded_chunk(nccl_mesh, name, args, kw)
+    cache = graphs.ChunkGraphs()
+    eager_state = graphed_state = state
+    for _ in range(2):
+        eager_state, eager_counts = _counted(
+            lambda: eager_body(eager_state, *rest, early_exit=False, **kw))
+        graphed_state, graphed_counts = _counted(
+            lambda: getattr(cache, name)(graphed_state, *rest, **kw))
+        assert graphed_counts == eager_counts and eager_counts["collectives"] > 0
+        _state_bits_equal(graphed_state, eager_state)
+    assert graphs.CAPTURES > 0 and int(eager_state.iteration) > int(state.iteration)
+
+
+def test_graphed_sharded_pdhg_equals_eager(nccl_mesh):
+    """pdhg_solve(mesh=...) over the NCCL world of one with its chunks
+    replayed (the grid's reductions captured) and with graphs.DEVICE_TYPES
+    emptied: the same point bit for bit, iterations, restarts and
+    collectives; one capture a call."""
+    from relp_tpu_torch.firstorder import pdhg
+    from relp_tpu_torch.parallel import sharded
+    from relp_tpu_torch.simplex import graphs
+    from relp_tpu_torch.testing import pdhg_lp
+
+    def solve():
+        sharded.COLLECTIVES = 0
+        x, y, st = pdhg.pdhg_solve(*pdhg_lp(64, 256, 7), max_iters=4_000,
+                                   device="cuda", mesh=nccl_mesh)
+        return x.tobytes(), y.tobytes(), st.iterations, st.restarts, sharded.COLLECTIVES
+
+    captures, replays = graphs.CAPTURES, graphs.REPLAYS
+    graphed = solve()
+    assert graphs.CAPTURES == captures + 1 and graphs.REPLAYS == replays + graphed[2] // 200
+    kept = graphs.DEVICE_TYPES
+    graphs.DEVICE_TYPES = ()
+    try:
+        assert solve() == graphed
+    finally:
+        graphs.DEVICE_TYPES = kept
+
+
+@pytest.mark.parametrize("kind", ["torch_float32", "torch_float64", "polish"])
+def test_graphed_sharded_batch_step_equals_eager_step(nccl_mesh, kind):
+    """A sharded step of solve_batch(mesh=...) (testing.step_case with the
+    mesh) through the cache of the mesh's column group against the eager
+    step (fixed length, as captured), three times after the key's first
+    use: state and report bitwise equal, a replay's collectives the eager
+    step's."""
+    from relp_tpu_torch.parallel.batch_driver import _batch_step, run_step
+    from relp_tpu_torch.simplex import graphs
+    from relp_tpu_torch.testing import step_case
+
+    body, state, inputs, static = step_case(kind, STEP_FAMILIES["resident"],
+                                            device="cuda", mesh=nccl_mesh)
+    run_step(body, state, inputs, graphed=True, **static)  # the first use
+    graphed = eager = state
+    replays = graphs.REPLAYS
+    for _ in range(3):
+        e, eager_counts = _counted(lambda: body(eager, **inputs, early_exit=False,
+                                                **static))
+        g, graphed_counts = _counted(lambda: run_step(body, graphed, inputs,
+                                                      graphed=True, **static))
+        assert graphed_counts == eager_counts and eager_counts["collectives"] > 0
+        if body is _batch_step:
+            assert torch.equal(g[1].view(torch.uint8), e[1].view(torch.uint8))
+            g, e = g[0], e[0]
+        _state_bits_equal(g, e)
+        graphed, eager = g, e
+    assert graphs.REPLAYS == replays + (2 if kind == "polish" else 3)
+    assert graphs.steps(static["shard"].group)._entries
+
+
+def test_graphed_sharded_batch_solve_equals_eager_solve(nccl_mesh):
+    """solve_batch(mesh=...) on the resident family's small cut over the
+    NCCL world of one: the eager call's results; a second call of the
+    shape replays the first call's keys and a third captures nothing."""
+    from relp_tpu_torch.parallel import solve_batch
+    from relp_tpu_torch.simplex import graphs
+
+    cfg = SolverConfig(pad_to=128, chunk_size=150, refactor_period=150)
+
+    def solve():
+        return [(r.status, r.exact_objective, r.stats.certified, r.basis,
+                 r.stats.iterations) for r in solve_batch(
+                     scenario_family(**STEP_FAMILIES["resident"]), cfg, certify=True,
+                     shared_structure=True, mesh=nccl_mesh)]
+
+    kept = graphs.DEVICE_TYPES
+    graphs.DEVICE_TYPES = ()
+    try:
+        eager = solve()
+    finally:
+        graphs.DEVICE_TYPES = kept
+    replays = graphs.REPLAYS
+    assert solve() == eager and solve() == eager and graphs.REPLAYS > replays
+    captures = graphs.CAPTURES
+    assert solve() == eager and graphs.CAPTURES == captures
+    assert all(v[2] for v in eager)

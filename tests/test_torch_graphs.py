@@ -1,13 +1,15 @@
 """Captured chunks (``relp_tpu_torch.simplex.graphs``) on the CPU.
 
-A CUDA graph needs a card, so these tests put a recording stand-in in place
-of ``torch.cuda.CUDAGraph``: between ``capture_begin`` and ``capture_end``
-it records every aten op the chunk runs, with the tensors it reads and
-writes, and its ``replay`` runs them again in order on the same tensors,
-each result written into the tensor the capture made.  Like a CUDA graph
-it fixes every tensor's identity at capture and refuses what a capture
-refuses: a read of a tensor's value on the host and a tensor made from
-host data.  The tests hold:
+A CUDA graph needs a card, so these tests put a recording stand-in
+(``relp_tpu_torch.testing.RecordingGraph``) in place of
+``torch.cuda.CUDAGraph``: between ``capture_begin`` and ``capture_end`` it
+records every aten op and every collective the chunk runs, with the
+tensors it reads and writes, and its ``replay`` runs them again in order
+on the same tensors, each result written into the tensor the capture made,
+each collective waited for.  Like a CUDA graph it fixes every tensor's
+identity at capture and refuses what a capture refuses: a read of a
+tensor's value on the host and a tensor made from host data.  The tests
+hold:
 
 * the key apart for every static argument, input shape and dtype;
 * the inputs copied in and the outputs cloned out, so that a state the
@@ -27,7 +29,12 @@ host data.  The tests hold:
 * whole solves with ``basis_inverse="lu"`` and ``carry="df32"`` through
   captured chunks giving the eager pivots, bases and exact objectives,
   and ``pdhg_solve`` / ``solve_first_order`` the eager iterates and
-  restarts.
+  restarts;
+* under a mesh (a gloo world of one): shards keyed by value, the sharded
+  dense and LU chunks replayed bit for bit with the eager chunk's
+  collectives counted per replay, and a cache of steps of its own for a
+  mesh's column group.  tests/test_torch_mesh.py replays the sharded
+  loops in 2 and 4 processes.
 
 The card's own graphs are held to eager chunks in tests/test_torch_cuda.py.
 """
@@ -35,8 +42,6 @@ The card's own graphs are held to eager chunks in tests/test_torch_cuda.py.
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 
 from relp_tpu_torch.config import SolverConfig
 from relp_tpu_torch.ops import price_scan
@@ -53,6 +58,7 @@ from relp_tpu_torch.simplex.state import SimplexState
 from relp_tpu_torch.testing import (
     BODY_KINDS,
     CHUNK_KINDS,
+    RecordingGraph,
     body_case,
     chunk_case,
     lu_start,
@@ -63,52 +69,6 @@ from relp_tpu_torch.testing import (
 from tests.test_torch_batch import one_torch_thread  # noqa: F401  (autouse)
 from tests.test_torch_driver import PORT, SCAN_BF16, SIMPLEX_SMALL
 
-# What a CUDA graph capture cannot hold: a host read of a value, a tensor
-# made from host data, an output whose size depends on the data.
-_REFUSED = {torch.ops.aten._local_scalar_dense.default, torch.ops.aten.lift_fresh.default,
-            torch.ops.aten.lift_fresh_copy.default, torch.ops.aten.nonzero.default}
-
-
-class _Recorder(TorchDispatchMode):
-    def __init__(self, ops):
-        super().__init__()
-        self.ops = ops
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func in _REFUSED:
-            raise RuntimeError(f"{func} inside a capture")
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        self.ops.append((func, args, kwargs, out))
-        return out
-
-
-class RecordingGraph:
-    """The stand-in for ``torch.cuda.CUDAGraph`` (module docstring)."""
-
-    def __init__(self):
-        self.ops = []
-        self._mode = None
-
-    def capture_begin(self, *args, **kwargs):
-        self._mode = _Recorder(self.ops)
-        self._mode.__enter__()
-
-    def capture_end(self):
-        self._mode.__exit__(None, None, None)
-
-    def replay(self):
-        for func, args, kwargs, out in self.ops:
-            again = func(*args, **kwargs)
-            for kept, new in zip(tree_leaves(out), tree_leaves(again)):
-                # A view or an in-place result shares the kept storage; a
-                # kept tensor may have been reshaped in place since (the
-                # vector-matrix product squeezes its mm's output).
-                if (isinstance(kept, torch.Tensor) and kept.untyped_storage().data_ptr()
-                        != new.untyped_storage().data_ptr()):
-                    kept.copy_(new.reshape(kept.shape))
-
-
 @pytest.fixture
 def recording(monkeypatch):
     """The stand-in as the graph type, the CPU among the captured devices,
@@ -117,7 +77,7 @@ def recording(monkeypatch):
     monkeypatch.setattr(graphs, "Graph", RecordingGraph)
     monkeypatch.setattr(graphs, "DEVICE_TYPES", ("cuda", "cpu"))
     for name, zero in (("CAPTURES", 0), ("REPLAYS", 0), ("CAPTURE_SECONDS", 0.0),
-                       ("EVICTIONS", 0), ("_STEPS", None)):
+                       ("EVICTIONS", 0), ("_STEPS", None), ("_GROUP_STEPS", {})):
         monkeypatch.setattr(graphs, name, zero)
 
 
@@ -349,17 +309,35 @@ def test_warm_dual_restart_through_captured_chunks_matches_eager(monkeypatch):
 
 def test_the_engine_captures_only_on_a_captured_device_without_a_mesh(recording,
                                                                      monkeypatch):
-    """DenseEngine keeps one cache for its life; a shard or a device outside
-    DEVICE_TYPES runs eagerly."""
-    from relp_tpu_torch.simplex.engine import DenseEngine
+    """Without a mesh, DenseEngine and LUEngine keep one cache for their
+    life on a device in DEVICE_TYPES; a device outside it runs eagerly.  A
+    shard: the next test."""
+    from relp_tpu_torch.simplex.engine import DenseEngine, LUEngine
 
     state = _start()[0]
-    engine = DenseEngine(torch.device("cpu"))
-    cache = engine._chunk_graphs(state)
-    assert isinstance(cache, graphs.ChunkGraphs) and engine._chunk_graphs(state) is cache
-    assert DenseEngine(torch.device("cpu"), shard=object())._chunk_graphs(state) is None
+    for engine_cls in (DenseEngine, LUEngine):
+        engine = engine_cls(torch.device("cpu"))
+        cache = engine._chunk_graphs(state)
+        assert isinstance(cache, graphs.ChunkGraphs) and engine._chunk_graphs(state) is cache
     monkeypatch.setattr(graphs, "DEVICE_TYPES", ("cuda",))
-    assert DenseEngine(torch.device("cpu"))._chunk_graphs(state) is None
+    for engine_cls in (DenseEngine, LUEngine):
+        assert engine_cls(torch.device("cpu"))._chunk_graphs(state) is None
+
+
+def test_a_sharded_engine_captures_on_a_captured_device_too(recording, monkeypatch):
+    """With a shard (a mesh's chunks are captured with their collectives),
+    DenseEngine and LUEngine keep one cache for their life on a device in
+    DEVICE_TYPES, as without one; a device outside it runs eagerly."""
+    from relp_tpu_torch.simplex.engine import DenseEngine, LUEngine
+
+    state = _start()[0]
+    for engine_cls in (DenseEngine, LUEngine):
+        engine = engine_cls(torch.device("cpu"), shard=object())
+        cache = engine._chunk_graphs(state)
+        assert isinstance(cache, graphs.ChunkGraphs) and engine._chunk_graphs(state) is cache
+    monkeypatch.setattr(graphs, "DEVICE_TYPES", ("cuda",))
+    for engine_cls in (DenseEngine, LUEngine):
+        assert engine_cls(torch.device("cpu"), shard=object())._chunk_graphs(state) is None
 
 
 def test_a_shared_cache_serves_the_solves_of_one_shape(monkeypatch):
@@ -572,3 +550,106 @@ def test_solve_first_order_through_captured_chunks_matches_eager(monkeypatch):
     assert vars(captured.first_order_stats) | {"wall_time_s": 0} == (
         vars(eager.first_order_stats) | {"wall_time_s": 0})
     assert replays == eager.first_order_stats.iterations // 200 + captured.stats.chunks
+
+
+def test_equal_shards_make_one_key(recording):
+    """A ColumnShard is a static argument of a captured chunk, keyed by
+    value (group, size, rank, N, device): two shards of one split are one
+    key, so a new call's new shard replays the graphs of the last; another
+    split is another key."""
+    from relp_tpu_torch.parallel.sharded import ColumnShard
+
+    one, same = ColumnShard(None, 2, 0, 40, "cpu"), ColumnShard(None, 2, 0, 40, "cpu")
+    assert one == same and hash(one) == hash(same) and one is not same
+    assert len({one, same, ColumnShard(None, 2, 1, 40, "cpu"),
+                ColumnShard(None, 2, 0, 41, "cpu")}) == 3
+    assert one != object()
+    state, A, c1, _c2, mask = _start()
+    cache = graphs.ChunkGraphs()
+
+    def body(state, A, *, shard, chunk):
+        return state._replace(xB=state.xB + A[0, : state.xB.shape[0]] * shard.size)
+
+    for shard in (one, same):
+        cache.run(body, state, dict(A=A), shard=shard, chunk=1)
+    assert graphs.CAPTURES == 1 and graphs.REPLAYS == 2
+    cache.run(body, state, dict(A=A), shard=ColumnShard(None, 2, 1, 40, "cpu"), chunk=1)
+    assert graphs.CAPTURES == 2
+
+
+@pytest.mark.parametrize("engine", ["dense", "lu"])
+def test_replayed_sharded_chunks_add_their_captured_collectives(recording, engine):
+    """A chunk column-sharded over a gloo world of one, replayed through
+    the stand-in (its collectives recorded and run again, each waited
+    for), chunk after chunk: the eager sharded chunk's bits (fixed length),
+    and the collectives it counts, per replay, the eager chunk's (the
+    warm-up's and the capture's own taken back), as launch_counts reads
+    them."""
+    from relp_tpu_torch.parallel import column_shard, shard_problem, shard_state, sharded
+    from tests.test_torch_mesh import world_of_one
+
+    if engine == "lu":
+        state, A, c1, _c2, mask = lu_start(m=24, n=40, pad=8, seed=3, capacity=20)
+        eager_body, name, kw = lu.lu_run_chunk, "lu_run_chunk", LU_KW
+    else:
+        state, A, c1, _c2, mask = _start()
+        eager_body, name, kw = kernels.run_chunk, "run_chunk", PRIMAL
+    kw = dict(kw, pricing=kernels.PRICE_STEEPEST)
+    with world_of_one() as mesh:
+        shard = column_shard(mesh, A.shape[1], "cpu")
+        A_s, _b, c_s, mask_s = shard_problem(mesh, A, None, c1, mask)
+        eager = graphed = shard_state(mesh, state, A.shape[1])
+        cache = graphs.ChunkGraphs()
+        for _ in range(3):
+            before = graphs.launch_counts()
+            eager = eager_body(eager, A_s, A_s, c_s, mask_s, shard=shard, early_exit=False,
+                               **kw)
+            middle = graphs.launch_counts()
+            graphed = getattr(cache, name)(graphed, A_s, A_s, c_s, mask_s, shard=shard,
+                                           **kw)
+            after = graphs.launch_counts()
+            assert after["collectives"] - middle["collectives"] == \
+                middle["collectives"] - before["collectives"] == 2 * kw["chunk"]
+            assert after["collectives"] == sharded.COLLECTIVES
+            _assert_bitwise(graphed, eager)
+    assert int(eager.iteration) > 0 and graphs.CAPTURES == (3 if engine == "lu" else 1)
+
+
+def test_a_mesh_groups_steps_have_a_cache_of_their_own(recording):
+    """graphs.steps(group): one cache for each column group, apart from the
+    unsharded steps', bounded and captured at a key's second use alike;
+    in a world of one its agreed byte count is its own."""
+    from tests.test_torch_mesh import world_of_one
+
+    with world_of_one() as mesh:
+        group = mesh.get_group("col")
+        cache = graphs.steps(group)
+        assert graphs.steps(group) is cache and cache is not graphs.steps()
+        assert cache.group is group and graphs.steps().group is None
+        assert cache.max_bytes == graphs.STEP_CACHE_BYTES and cache._seen is not None
+        state, A, c1, _c2, mask = _start()
+        for _ in range(2):
+            cache.run_chunk(state, A, A, c1, mask, **PRIMAL)
+        assert graphs.CAPTURES == 1 and cache._held(A.device) == cache.nbytes() > 0
+
+
+def test_a_groups_step_cache_goes_with_release_group_and_shutdown(recording):
+    """graphs.release_group(group) drops that group's cache of steps, its
+    graphs and buffers, and keeps the unsharded steps' cache; shutting the
+    world down (parallel.shutdown_multihost) drops every group's before
+    it destroys the process groups."""
+    from tests.test_torch_mesh import world_of_one
+
+    state, A, c1, _c2, mask = _start()
+    with world_of_one() as mesh:
+        group = mesh.get_group("col")
+        cache = graphs.steps(group)
+        for _ in range(2):
+            cache.run_chunk(state, A, A, c1, mask, **PRIMAL)
+        unsharded = graphs.steps()
+        assert graphs.CAPTURES == 1 and cache.nbytes() > 0
+        graphs.release_group(group)
+        assert graphs._GROUP_STEPS == {} and cache._entries == {} and cache.nbytes() == 0
+        assert graphs.steps() is unsharded and graphs.steps(group) is not cache
+        assert group in graphs._GROUP_STEPS
+    assert graphs._GROUP_STEPS == {}
