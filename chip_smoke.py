@@ -159,14 +159,26 @@ graphs=captures/replays/capture seconds of the path):
                    against the card's, and its primal residual against the
                    same call's in f64 on the CPU
                    (relp_tpu_torch.tools.pdhg_check);
- 18. lu/real, lu/profile, lu/real/eager
+ 18. lu/real, lu/split, lu/profile, lu/real/eager, lu/kernel
                    main/real's LP on the LU engine, its chunks replayed from
-                   CUDA graphs (captures by the ring's fill at entry):
-                   certified, the pinned digest, ms per pivot; one chunk of
-                   it replayed under the profiler for device kernels, host
-                   launches and device-busy time per pivot; then the same
-                   solve with eager chunks up to its 20th chunk, which it
-                   must enter with the graphed run's state, bit for bit.
+                   CUDA graphs (one capture for every fill of the eta ring,
+                   whose passes are the eta-ring kernels' launches):
+                   certified, the pinned digest, ms per pivot; the solve's
+                   seconds split into chunk replays and chunk exits
+                   (refactorizations, gamma refreshes, the rest); one chunk
+                   of it replayed under the profiler for device kernels,
+                   host launches and device-busy time per pivot; then the
+                   same solve with eager chunks up to its 20th chunk, which
+                   it must enter with the graphed run's state, bit for bit.
+                   After the paths' launches are read, lu/kernel: that 20th
+                   chunk run eagerly once more, and eta_ftran/eta_btran on
+                   the inputs of its first and last call of each against
+                   their plain versions (the plain FTRAN loop and the
+                   ordered BTRAN twin), bit for bit, timed warm and
+                   L2-cold, at no live slot and with the vector in device
+                   memory, beside the slot-chain probe (the live slots'
+                   L2 reads and barriers alone), the torch loop over the
+                   live slots replayed from a graph, and the bound.
  19. df32/real, df32/profile, df32/real/eager, df32/kernel
                    main/real's LP with the double-float carry
                    (carry="df32"), its chunks replayed from CUDA graphs:
@@ -204,14 +216,16 @@ graphs=captures/replays/capture seconds of the path):
                    chunks replayed from graphs, cut to the prefix before
                    its 20th chunk: lu/real's pivots, basis and status there
                    exactly; collectives and ms per pivot of the prefix
-                   beside lu/real's; the 20th chunk's graph replayed under
+                   beside lu/real's, and its seconds split as lu/split's
+                   (mesh/lu/split); the 20th chunk's graph replayed under
                    the profiler for launches, host launches and
                    device-busy time per pivot beside lu/real's.
 
 A `[time] phase=<name> s=<seconds>` line follows every phase (a phase run
 inside another, mesh/lu, is not counted twice), and `[time] total_s=...`
-the last of them.  Then a JSON line describing each kernel (six: the scan, the two
-batched-pivot kernels and the probe's three) with its time, its plain
+the last of them.  Then a JSON line describing each kernel (eight: the
+scan, the two batched-pivot kernels, the probe's three and the two
+eta-ring kernels) with its time, its plain
 version's, its bound (the larger of its bytes at 3.35 TB/s and its
 operations at the H100's peak for their type), the library yardstick,
 its error on mip/real's inputs (the scan's also on main/real's,
@@ -1063,7 +1077,7 @@ def _device_busy(torch, fn, pivots: int):
             host[e.name()] += 1
     busy_ms = sum(by_name.values()) / pivots
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:5]
-    return busy_ms, launches, [(name[:40], ms / pivots) for name, ms in top], host
+    return busy_ms, launches, [(name[:100], ms / pivots) for name, ms in top], host
 
 
 _SHAPES = {}
@@ -1780,7 +1794,7 @@ def _kernel_events(torch, fn, name: str) -> int:
 
 def _launch_counts():
     """Every kernel's launch counter, by the name of its JSON entry."""
-    from relp_tpu_torch.ops import batch_pivot, price_scan
+    from relp_tpu_torch.ops import batch_pivot, eta_ring, price_scan
     from relp_tpu_torch.tools import probe_dot_precision as probe
 
     return {
@@ -1788,6 +1802,7 @@ def _launch_counts():
         **{f"fused_price_scan_{name}": n for name, n in price_scan.LAUNCHES_BY_DTYPE.items()},
         "batched_pivot_chunk": batch_pivot.LAUNCHES_RESIDENT,
         "batched_pivot_chunk_blocked": batch_pivot.LAUNCHES_BLOCKED,
+        **{f"eta_{kind}": n for kind, n in eta_ring.LAUNCHES.items()},
         **{f"probe_dot_{kind}": probe.LAUNCHES[kind] for kind in probe.KINDS},
         # The captured chunks and steps: captures/replays/capture seconds,
         # and the entries the process-wide cache of steps evicted.
@@ -1797,7 +1812,7 @@ def _launch_counts():
 
 
 def _zero_launch_counts():
-    from relp_tpu_torch.ops import batch_pivot, price_scan
+    from relp_tpu_torch.ops import batch_pivot, eta_ring, price_scan
     from relp_tpu_torch.simplex import graphs
     from relp_tpu_torch.tools import probe_dot_precision as probe
 
@@ -1805,6 +1820,8 @@ def _zero_launch_counts():
     for name in price_scan.LAUNCHES_BY_DTYPE:
         price_scan.LAUNCHES_BY_DTYPE[name] = 0
     batch_pivot.LAUNCHES_RESIDENT = batch_pivot.LAUNCHES_BLOCKED = 0
+    for kind in eta_ring.LAUNCHES:
+        eta_ring.LAUNCHES[kind] = 0
     for kind in probe.KINDS:
         probe.LAUNCHES[kind] = 0
     graphs.CAPTURES = graphs.REPLAYS = graphs.EVICTIONS = 0
@@ -2488,10 +2505,13 @@ def phase_first_order_pdhg(torch, np, device):
 
 def phase_lu_real(torch, found):
     """main/real's LP through solve_general_form on the LU engine: certified,
-    the pinned digest; pivots, refactorizations, ms per pivot; then one
+    the pinned digest; pivots, refactorizations, ms per pivot, the solve's
+    seconds split into chunk replays and chunk exits (lu/split); then one
     phase-2 chunk of that solve replayed under the profiler for launches
     and device-busy time per pivot.  Leaves the result and its ms per pivot
-    in ``found`` for mesh/lu."""
+    in ``found`` for mesh/lu.  Returns lu/kernel (run once the path's
+    launches are read): the eta-ring kernels against their plain versions
+    on that chunk's inputs."""
     from relp_tpu_torch.config import SolverConfig
     from relp_tpu_torch.simplex import SolveStatus, engine, solve_general_form
     from relp_tpu_torch.testing import (
@@ -2502,9 +2522,10 @@ def phase_lu_real(torch, found):
 
     from relp_tpu_torch.simplex import lu as lu_mod
 
-    kept, calls = {}, []
+    kept, calls, split = {}, [], {}
     graphs0 = _graph_counts()
-    with _keeping_profiled_chunk(engine.LUEngine, kept, calls):
+    with _splitting_solve(torch, engine.LUEngine, split), \
+            _keeping_profiled_chunk(engine.LUEngine, kept, calls):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result, solution = solve_general_form(generated_lp(**REAL_SIZE),
@@ -2533,13 +2554,185 @@ def phase_lu_real(torch, found):
         certify_s=f"{result.stats.certify_time_s:.3f}",
         solve_ms_per_pivot=f"{solve_s / pivots * 1e3:.4f}",
         graphs=_graph_fields(graph_counts),
-        captures_by_eta0=";".join(f"{k}:{n}" for k, n in sorted(by_eta0.items())),
+        captures_by_eta0=";".join(f"{k}:{n}" for k, n in by_eta0.items()),
         lu_solve_backend=str(torch.backends.cuda.preferred_linalg_library()),
     )
+    _split_line("lu/split", split, solve_s, pivots)
     state = kept["run_chunk"][0][1]
     found.update(result=result, solve_ms_per_pivot=solve_s / pivots * 1e3, replay=replay,
                  state=state, prefix_s=calls[_PROFILED_CHUNK - 1] - t0)
     _line("lu/profile", chunk=_PROFILED_CHUNK, path="graph", **replay.fields())
+    return lambda: phase_lu_kernel(torch, kept["run_chunk"])
+
+
+@contextlib.contextmanager
+def _splitting_solve(torch, engine_cls, split):
+    """``engine_cls``'s run_chunk (a replay, on a graphed engine),
+    refactor and recompute_gamma each timed by two CUDA events recorded on
+    the current stream around the call, with no synchronisation added: a
+    call's span runs from the stream's reaching the first event (the call's
+    start, or the end of work queued before it) to its reaching the second
+    (the end of the call's device work, or of its host work where the
+    stream is idle by then).  Their seconds and calls go into ``split``
+    (chunk_s, chunks, refactor_s, refactors, gamma_s, gammas) when the
+    block ends."""
+    spans = []
+
+    def timing(key, count):
+        def wrapper(fn):
+            def run(*args, **kwargs):
+                first = torch.cuda.Event(enable_timing=True)
+                second = torch.cuda.Event(enable_timing=True)
+                first.record()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    second.record()
+                    spans.append((key, count, first, second))
+            return run
+        return wrapper
+
+    try:
+        with _wrapped(engine_cls, "run_chunk", timing("chunk_s", "chunks")), \
+                _wrapped(engine_cls, "refactor", timing("refactor_s", "refactors")), \
+                _wrapped(engine_cls, "recompute_gamma", timing("gamma_s", "gammas")):
+            yield
+    finally:
+        torch.cuda.synchronize()
+        split.update(chunk_s=0.0, chunks=0, refactor_s=0.0, refactors=0, gamma_s=0.0,
+                     gammas=0)
+        for key, count, first, second in spans:
+            split[key] += first.elapsed_time(second) / 1e3
+            split[count] += 1
+
+
+def _split_line(label, split, solve_s, pivots):
+    """A solve's seconds (``solve_s``, ``pivots`` pivots) split into chunk
+    replays and chunk exits: the refactorizations, the gamma refreshes and
+    the rest (status and health reads, the drive-out of artificials, host
+    bookkeeping, the host pipeline before the first chunk)."""
+    exits = solve_s - split["chunk_s"]
+    rest = exits - split["refactor_s"] - split["gamma_s"]
+    _line(label, solve_s=f"{solve_s:.3f}", pivots=pivots, chunks=split["chunks"],
+          chunk_s=f"{split['chunk_s']:.3f}",
+          chunk_ms_per_pivot=f"{split['chunk_s'] / pivots * 1e3:.4f}",
+          exits_s=f"{exits:.3f}", exits_ms_per_pivot=f"{exits / pivots * 1e3:.4f}",
+          refactor_s=f"{split['refactor_s']:.3f}", refactors=split["refactors"],
+          gamma_s=f"{split['gamma_s']:.3f}", gammas=split["gammas"],
+          rest_s=f"{rest:.3f}", **_CARD)
+
+
+def _eta_bound(kind, n, M, itemsize):
+    """(bound_ms, bound_by) of an eta-ring pass over ``n`` live slots: the
+    live ring and its rows read once, the vector read and written, the
+    count read; 2M + 1 (FTRAN) or 2M + 3 (BTRAN) operations a slot."""
+    bytes_moved = n * M * itemsize + 2 * M * itemsize + 4 * n + 4
+    ops = n * (2 * M + (1 if kind == "ftran" else 3))
+    return _bound(bytes_moved, ops, F64_FLOPS if itemsize == 8 else F32_FLOPS)
+
+
+def phase_lu_kernel(torch, chunk_args):
+    """lu/kernel: lu/real's 20th chunk run once more, eagerly, from its kept
+    entry state (``chunk_args``: the engine's run_chunk call), keeping the
+    inputs of the first and the last call of each eta-ring kernel (the
+    ring's fill at entry and its largest); on each, the kernel against its
+    plain version (FTRAN: the plain loop; BTRAN: the ordered twin), bit for
+    bit; the kernel's device ms warm and L2-cold (after a 128 MB read), at
+    the same ring with no live slot, with the vector in device memory (the
+    launch for a vector too large for shared memory: the same bits), the
+    slot-chain probe's (csrc/slot_chain.cu: the live slots' L2 reads and
+    barriers alone) warm, L2-cold and with no live slot, the plain loop as
+    the torch route ran it (its live slots, replayed from a graph; BTRAN
+    also with the ordered twin's dot), and the bound.  Returns {kernel: the
+    last call's fields} for the kernels line."""
+    from relp_tpu_torch.ops import eta_ring
+    from relp_tpu_torch.simplex import graphs
+
+    (engine, state, *args), kwargs = chunk_args
+    first, last = {}, {}
+
+    def keeping(kind):
+        def wrapper(fn):
+            def run(eta_vals, eta_rows, eta_count, x, steps=None):
+                inputs = tuple(t.clone() for t in (eta_vals, eta_rows, eta_count, x))
+                first.setdefault(kind, inputs)
+                last[kind] = inputs
+                return fn(eta_vals, eta_rows, eta_count, x, steps)
+            return run
+        return wrapper
+
+    keep = graphs.DEVICE_TYPES
+    graphs.DEVICE_TYPES = ()  # the chunk eager: the wrappers run every call
+    try:
+        with _wrapped(eta_ring, "eta_ftran", keeping("ftran")), \
+                _wrapped(eta_ring, "eta_btran", keeping("btran")):
+            out = type(engine).run_chunk(engine, state, *args, **kwargs)
+    finally:
+        graphs.DEVICE_TYPES = keep
+    torch.cuda.synchronize()
+    _check(int(out.iteration) > int(state.iteration), "lu/kernel: the chunk took no pivot")
+    found = {}
+    for kind in ("ftran", "btran"):
+        for at, inputs in (("entry", first[kind]), ("last", last[kind])):
+            found[f"eta_{kind}"] = _hold_eta(torch, kind, at, inputs)
+    return found
+
+
+def _hold_eta(torch, kind, at, inputs):
+    """One eta-ring kernel on one kept call's inputs: its line, and its
+    fields for the kernels line."""
+    from relp_tpu_torch.ops import eta_ring
+    from relp_tpu_torch.tools.eta_ring_timing import slot_chain
+
+    vals, rows, count, x = inputs
+    K, M = vals.shape
+    n = min(int(count), K)
+    kernel = eta_ring.eta_ftran if kind == "ftran" else eta_ring.eta_btran
+    ordered = {} if kind == "ftran" else dict(order="kernel")
+    plain = eta_ring.eta_ftran_plain if kind == "ftran" else eta_ring.eta_btran_plain
+    got, again = kernel(*inputs), kernel(*inputs)
+    want = plain(*inputs, **ordered)
+    torch.cuda.synchronize()
+    same = (torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+            and torch.equal(got.view(torch.uint8), again.view(torch.uint8)))
+    _check(same, f"lu/kernel: eta_{kind} differs from its plain version at fill {n}")
+    err = float((got.double() - want.double()).abs().max())
+    empty = torch.zeros_like(count)
+    device_memory = lambda: eta_ring._launch(kind, *inputs, shared=False)  # noqa: E731
+    _check(torch.equal(device_memory().view(torch.uint8), got.view(torch.uint8)),
+           f"lu/kernel: eta_{kind} in device memory differs at fill {n}")
+    chain = lambda: slot_chain(kind, vals, count)  # noqa: E731
+    times = {
+        "ms": _graph_ms(torch, lambda: kernel(*inputs)),
+        "cold_ms": _graph_ms(torch, lambda: kernel(*inputs), flush=_flush(torch)),
+        "empty_ms": _graph_ms(torch, lambda: kernel(vals, rows, empty, x)),
+        "device_ms": _graph_ms(torch, device_memory),
+        "device_cold_ms": _graph_ms(torch, device_memory, flush=_flush(torch)),
+        "chain_ms": _graph_ms(torch, chain),
+        "chain_cold_ms": _graph_ms(torch, chain, flush=_flush(torch)),
+        "chain_empty_ms": _graph_ms(torch, lambda: slot_chain(kind, vals, empty)),
+        "plain_ms": _graph_ms(torch, lambda: plain(*inputs, steps=n)),
+    }
+    if kind == "btran":
+        times["ordered_plain_ms"] = _graph_ms(
+            torch, lambda: plain(*inputs, steps=n, order="kernel"))
+        loop = plain(*inputs, steps=n)
+        scale = float(loop.double().abs().max())
+        vs_loop = float((got.double() - loop.double()).abs().max()) / max(scale, 1e-300)
+    bound_ms, bound_by = _eta_bound(kind, n, M, x.element_size())
+    per_slot_us = (times["ms"] - times["empty_ms"]) / n * 1e3 if n else None
+    _line("lu/kernel", kernel=f"eta_{kind}", at=at, K=K, M=M,
+          dtype=str(x.dtype).replace("torch.", ""), live_slots=n,
+          bitwise_plain=True, repeat_bitwise=True, max_abs_err=f"{err:.3e}",
+          **({"rel_err_vs_matmul_loop": f"{vs_loop:.3e}"} if kind == "btran" else {}),
+          **{k: f"{v:.5f}" for k, v in times.items()},
+          us_per_live_slot=f"{per_slot_us:.4f}" if per_slot_us is not None else "none",
+          bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+          bound_share=f"{bound_ms / times['ms']:.4f}",
+          chain_share=f"{times['chain_ms'] / times['ms']:.4f}", **_CARD)
+    return dict(max_abs_err=err, live_slots=n, shape=[K, M], bound_ms=bound_ms,
+                bound_by=bound_by, us_per_live_slot=per_slot_us, **times)
+
 
 # The chunk of lu/real, df32/real and mesh/lu replayed under the profiler.
 _PROFILED_CHUNK = 20
@@ -2799,10 +2992,11 @@ def phase_mesh_lu(torch, mesh, lu, window):
     gf = generated_lp(**REAL_SIZE)
     gf.presolve()
     md = gf.derive_matrix_data(gf.standardize())
-    kept, calls = {}, []
+    kept, calls, split = {}, [], {}
     _zero_launch_counts()
     sharded.COLLECTIVES = 0
-    with _stopping_at_profiled_chunk(engine.LUEngine, kept, calls):
+    with _splitting_solve(torch, engine.LUEngine, split), \
+            _stopping_at_profiled_chunk(engine.LUEngine, kept, calls):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         solve_relaxation(md, SolverConfig(basis_inverse="lu"), mesh=mesh)
@@ -2830,6 +3024,7 @@ def phase_mesh_lu(torch, mesh, lu, window):
         lu_real_prefix_ms_per_pivot=f"{lu['prefix_s'] / pivots * 1e3:.4f}",
         graphs=_graph_fields(graph_counts), **_CARD,
     )
+    _split_line("mesh/lu/split", split, prefix_s, pivots)
     _line(
         "mesh/lu", profiled_chunk=_PROFILED_CHUNK, path="graph",
         chunk_collectives_per_pivot=f"{replay.collectives / replay.pivots:.3f}",
@@ -3171,7 +3366,8 @@ def phase_other_modes(torch, np, device, knap6_pivots, main_result):
     on the inputs a path gave it (launches not counted): mip/real's, and
     the scan's on main/bf16, mip/real64, df32/real and mesh/world1.
     Returns ({path: launches by kernel}, {kernel: mip/real's error},
-    {path: (the scan's error, its times)})."""
+    {path: (the scan's error, its times)}, {eta-ring kernel: lu/kernel's
+    fields})."""
     from relp_tpu_torch.config import SolverConfig
     from relp_tpu_torch.simplex import engine
 
@@ -3209,11 +3405,16 @@ def phase_other_modes(torch, np, device, knap6_pivots, main_result):
                f"{path} never launched the scan kernel")
     _check(by_path["main/bf16"]["fused_price_scan_bfloat16"] > 0,
            "main/bf16 never launched the scan kernel on its bf16 tableau")
+    for path in ("lu/real", "lu/real/eager", "mesh/lu"):
+        for kind in ("ftran", "btran"):
+            _check(by_path[path][f"eta_{kind}"] > 0,
+                   f"{path} never launched the eta_{kind} kernel")
     scans = {path: replays[path]() for path in ("main/bf16", "mip/real64", "df32/real",
                                                  "mesh/world1")}
     mip = replays["mip/real"]()
     scans["mip/real"] = (mip["fused_price_scan"], mip.pop("fused_price_scan_times"))
-    return by_path, mip, scans
+    eta = _timed("lu/kernel", replays["lu/real"])
+    return by_path, mip, scans, eta
 
 
 _REFUSED = ("jax", "jaxlib", "relp_tpu")
@@ -3284,7 +3485,7 @@ def main() -> int:
     differ = _timed("batch/graph", phase_batch_graph, torch, np)
     _check(not differ, f"batch/graph: graphed steps differ from eager ones: {differ}")
 
-    by_path, mip_errors, scans = phase_other_modes(
+    by_path, mip_errors, scans, eta = phase_other_modes(
         torch, np, device, knap6_pivots, main_result)
     scans = {"main/real": main_scan, **scans}
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in _REFUSED)
@@ -3353,6 +3554,32 @@ def main() -> int:
                         + {"tf32": "54", "tf32x3": "64", "outer": "74"}[kind],
             **fields,
             "shape": [256, 256],
+        })
+    for kind, line in (("ftran", "77"), ("btran", "98")):
+        name = f"eta_{kind}"
+        fields = eta[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "relp_tpu_torch/csrc/eta_ring.cu",
+            "replaces": f"relp_tpu/simplex/lu.py:{line} (XLA fori_loop, no Pallas)",
+            "launches": by_path["lu/real"][name],
+            "max_abs_err": fields["max_abs_err"],
+            "ms": fields["ms"],
+            "cold_ms": fields["cold_ms"],
+            "empty_ring_ms": fields["empty_ms"],
+            "device_memory_ms": fields["device_ms"],
+            "slot_chain_ms": fields["chain_ms"],
+            "plain_ms": fields["plain_ms"],
+            **({"ordered_plain_ms": fields["ordered_plain_ms"]} if kind == "btran" else {}),
+            "bound_ms": fields["bound_ms"],
+            "bound_by": fields["bound_by"],
+            "library_ms": None,
+            "shape": fields["shape"],
+            "live_slots": fields["live_slots"],
+            "us_per_live_slot": fields["us_per_live_slot"],
+            "per": "one pass on lu/real's 20th chunk's last call (plain: the torch "
+                   "loop over the live slots, replayed from a graph)",
         })
     for entry in kernels:
         entry["launches_by_path"] = {path: counts[entry["name"]]

@@ -309,12 +309,13 @@ class LUEngine(_CapturedChunks):
         stop_at_zero=False,
     ):
         # d is recomputed per pivot from pi (no carried d), so the LU path
-        # prices with plain matvecs, not through the fused scan kernel.  The
-        # ring's fill at entry sets the eta loops' lengths: a graph each.
+        # prices with plain matvecs, not through the fused scan kernel.  On
+        # a card the eta-ring kernels read the ring's fill on the device;
+        # on the CPU the chunk reads it at entry to size the eta loops.
         kw = dict(
             pricing=mode, chunk=cfg.chunk_size, opt_tol=cfg.opt_tol,
             pivot_tol=cfg.pivot_tol, degen_tol=cfg.feas_tol,
-            stop_at_zero=stop_at_zero, eta0=int(state.eta_count),
+            stop_at_zero=stop_at_zero,
         )
         captured = self._chunk_graphs(state)
         run = lu_mod.lu_run_chunk if captured is None else captured.lu_run_chunk

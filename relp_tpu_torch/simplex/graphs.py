@@ -33,9 +33,12 @@ batch step: that and its report, a tensor).
   dtype, device and strides of every state field and input, which
   inputs are one tensor (the dense chunk's A_scan is A_full) and the
   identity of an input read in place (``bound``, below): what
-  ``static_argnames`` and the argument shapes key in JAX.  The LU chunk's
+  ``static_argnames`` and the argument shapes key in JAX.  On a card the
+  LU chunk's passes through the eta ring are one kernel launch each that
+  reads the ring's fill on the device, so an LU chunk is captured once
+  (its key's ``eta0`` None); where the plain eta loops run (the CPU), the
   static ``eta0``, the ring's fill at chunk entry, sets how many ring slots
-  each eta loop runs, so an LU chunk is captured once per ``eta0`` seen.
+  each loop runs, and an LU chunk is captured once per ``eta0`` seen.
 * **Inputs**: static buffers, shared by the entries of one cache by role,
   shape, dtype and strides, each laid out as its tensor is.  A tensor
   expanded over its leading dimension (stride 0: ``solve_batch``'s one
@@ -61,15 +64,17 @@ batch step: that and its report, a tensor).
 * **Launch counts**: a kernel wrapper counts a launch when its Python
   runs, which happens at capture only.  An entry records what its capture
   counted on every counter (the scan's, in all and by dtype, the two
-  batched-pivot kernels', and the mesh's collectives), and each replay
-  adds that, so every counter stays what eager execution gives; the
+  batched-pivot kernels', the two eta-ring kernels' and the mesh's
+  collectives), and each replay adds that, so every counter stays what
+  eager execution gives; the
   warm-up's and the capture's own counts are taken back.  A replay's
   count is this bookkeeping, not an observation of the replay: what shows
   that a replay ran the kernel is its output, equal to the eager step's
   bit for bit, or a profiler trace of the replay.  A capture on CUDA of a
   body that must launch a kernel (``must_launch``: the scan for a
   steepest-edge dense primal or df32 chunk, the batched-pivot kernel of
-  the kernel route's step) that counted no launch of it raises.
+  the kernel route's step, the eta-ring FTRAN for the LU chunk) that
+  counted no launch of it raises.
 * **Lifetime**: a cache belongs to one engine, and so to one solve of one
   rung (or to one ``pdhg_solve`` call); its graphs, their memory pools and
   its static buffers go with it.  Inside ``shared(cache)`` every engine
@@ -100,9 +105,10 @@ batch step: that and its report, a tensor).
   capture, replay or run eagerly the same chunk at the same point, or the
   collectives of different ranks stop matching.  An engine's cache and a
   ``pdhg_solve`` call's capture every key at its first use, and every
-  rank sees the same keys in the same order (the ring's fill ``eta0`` is
-  replicated), so they decide alike.  The steps of a mesh go to a cache of
-  their own, ``steps(group)`` for the column group of their shard, whose
+  rank sees the same keys in the same order (on the CPU the ring's fill
+  ``eta0`` is replicated), so they decide alike.  The steps of a mesh go
+  to a cache of their own, ``steps(group)`` for the column group of their
+  shard, whose
   decisions rest on the order of keys, the same on every rank, and on one
   fact that is not: the bytes it holds.  Before every eviction its ranks
   agree on that as its largest value over the group.  Each such cache has
@@ -128,7 +134,7 @@ import torch
 import torch.distributed as dist
 from torch.utils._pytree import tree_map
 
-from relp_tpu_torch.ops import batch_pivot, price_scan
+from relp_tpu_torch.ops import batch_pivot, eta_ring, price_scan
 from relp_tpu_torch.simplex import df_kernels, kernels, lu
 
 # The graph type, and the devices whose chunks the engines and
@@ -231,7 +237,8 @@ def _reserved(device: torch.device) -> int:
 def launch_counts() -> Dict[str, int]:
     """Every kernel wrapper's launch counter: the scan's in all
     (``"scan"``) and by dtype (``"scan_<dtype>"``), the batched-pivot
-    kernels' (``"resident"``, ``"blocked"``); and the mesh's collectives
+    kernels' (``"resident"``, ``"blocked"``), the eta-ring kernels'
+    (``"eta_ftran"``, ``"eta_btran"``); and the mesh's collectives
     (``"collectives"``, ``parallel.sharded.COLLECTIVES``)."""
     from relp_tpu_torch.parallel import sharded  # the package imports this module
 
@@ -239,6 +246,7 @@ def launch_counts() -> Dict[str, int]:
             **{f"scan_{name}": n for name, n in price_scan.LAUNCHES_BY_DTYPE.items()},
             "resident": batch_pivot.LAUNCHES_RESIDENT,
             "blocked": batch_pivot.LAUNCHES_BLOCKED,
+            **{f"eta_{kind}": n for kind, n in eta_ring.LAUNCHES.items()},
             "collectives": sharded.COLLECTIVES}
 
 
@@ -250,6 +258,8 @@ def _set_launch_counts(counts: Dict[str, int]) -> None:
         price_scan.LAUNCHES_BY_DTYPE[name] = counts[f"scan_{name}"]
     batch_pivot.LAUNCHES_RESIDENT = counts["resident"]
     batch_pivot.LAUNCHES_BLOCKED = counts["blocked"]
+    for kind in eta_ring.LAUNCHES:
+        eta_ring.LAUNCHES[kind] = counts[f"eta_{kind}"]
     sharded.COLLECTIVES = counts["collectives"]
 
 
@@ -341,15 +351,22 @@ class ChunkGraphs:
                      pricing: int, chunk: int, opt_tol: float, pivot_tol: float,
                      degen_tol: float, stop_at_zero: bool = False,
                      eta0: Optional[int] = None, shard=None):
-        """``lu.lu_run_chunk`` as a replayed graph, one per ``eta0`` (the
-        ring's fill at entry, read here when not given); ``shard`` as for
-        ``run_chunk``."""
+        """``lu.lu_run_chunk`` as a replayed graph: on the eta-ring
+        kernels' route (``eta_ring.launches_kernel``) one for every fill of
+        the ring, its key's ``eta0`` None and ``eta0`` not read; else one
+        per ``eta0`` (the ring's fill at entry, read here when not given).
+        ``shard`` as for ``run_chunk``."""
+        kernel_route = eta_ring.launches_kernel(state.eta_vals)
+        if kernel_route:
+            eta0 = None
+        elif eta0 is None:
+            eta0 = int(state.eta_count)
         return self.run(
             lu.lu_run_chunk, state,
             dict(A_scan=A_scan, A_full=A_full, c=c, candidate_mask=candidate_mask),
+            must_launch="eta_ftran" if kernel_route else None,
             pricing=pricing, chunk=chunk, opt_tol=opt_tol, pivot_tol=pivot_tol,
-            degen_tol=degen_tol, stop_at_zero=stop_at_zero,
-            eta0=int(state.eta_count) if eta0 is None else eta0, shard=shard,
+            degen_tol=degen_tol, stop_at_zero=stop_at_zero, eta0=eta0, shard=shard,
             early_exit=False,
         )
 

@@ -17,10 +17,14 @@ Differences from the JAX code, and why:
   the ring-full ``eta_count < capacity`` and ``stop_at_zero``) fold into
   the mask, and on the CPU the loop stops at the first inactive iteration.
 * The JAX eta loops run all ``capacity`` slots under ``lax.cond(k <
-  eta_count)``.  Here a loop runs only the slots that can be in use: at
-  iteration i of a chunk that started with e etas, at most e + i.  A slot
-  past the live count is a masked identity, so the bits are those of the
-  full masked loop.
+  eta_count)``, one compiled device loop.  On a card
+  (``eta_ring.launches_kernel``) a pass through the ring is one launch of
+  ``ops.eta_ring``'s kernels, which read the live count on the device, so
+  a chunk's passes do not depend on the ring's fill at entry.  On the CPU
+  the plain loops run only the slots that can be in use: at iteration i of
+  a chunk that started with e etas, at most e + i.  A slot past the live
+  count is a masked identity, so the bits are those of the full masked
+  loop.
 * The ring is written in place on the chunk's own copy of it, and a slot
   keeps its old value unless the pivot is taken; the index of the write is
   clamped into the ring, so a full ring (where no pivot is taken) is never
@@ -42,6 +46,7 @@ from typing import Any, Dict, Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 
+from relp_tpu_torch.ops import eta_ring
 from relp_tpu_torch.simplex.kernels import (
     PRICE_STEEPEST,
     _at,
@@ -120,53 +125,18 @@ def _lu_solve(lu, piv, B0, rhs, trans: int, refine: bool = True):
     return x
 
 
-def _live(eta_count, steps: int, device) -> torch.Tensor:
-    """(steps,) bool: slot k holds a live eta (k < eta_count)."""
-    return torch.arange(steps, device=device) < eta_count
-
-
-def _apply_etas_ftran(eta_vals, eta_rows, eta_count, x, steps: int):
-    """x <- E_k^-1 ... E_1^-1 x over the first ``steps`` slots; a slot past
-    ``eta_count`` is skipped.  E = I + (w - e_r) e_r^T, so E^-1 x =
-    x - (x_r / w_r)(w - e_r)."""
-    if steps == 0:
-        return x
-    live = _live(eta_count, steps, x.device)
-    rows = eta_rows.to(torch.int64)
-    for k in range(steps):
-        w, r1 = eta_vals[k], rows[k : k + 1]
-        factor = x.index_select(0, r1) / w.index_select(0, r1)
-        new = x - factor * w
-        new.index_copy_(0, r1, factor)
-        x = torch.where(live[k], new, x)
-    return x
-
-
-def _apply_etas_btran(eta_vals, eta_rows, eta_count, y, steps: int):
-    """y <- y E_k^-1 ... E_1^-1 (row form), newest eta first; only entry r
-    moves: y'_r = y_r - (y.w - y_r) / w_r."""
-    if steps == 0:
-        return y
-    live = _live(eta_count, steps, y.device)
-    rows = eta_rows.to(torch.int64)
-    for k in reversed(range(steps)):
-        w, r1 = eta_vals[k], rows[k : k + 1]
-        y_r = y.index_select(0, r1)
-        new_r = y_r - (torch.matmul(y, w) - y_r) / w.index_select(0, r1)
-        y = y.index_copy(0, r1, torch.where(live[k], new_r, y_r))
-    return y
-
-
-def lu_ftran(state: LUState, a, steps: int):
-    """w = B^-1 a through the factors and the first ``steps`` ring slots."""
+def lu_ftran(state: LUState, a, steps: Optional[int] = None):
+    """w = B^-1 a through the factors and the ring (``eta_ring.eta_ftran``:
+    its live slots on a card, else the first ``steps``, all by default)."""
     x = _lu_solve(state.lu, state.piv, state.B0, a, trans=0)
-    return _apply_etas_ftran(state.eta_vals, state.eta_rows, state.eta_count, x, steps)
+    return eta_ring.eta_ftran(state.eta_vals, state.eta_rows, state.eta_count, x, steps)
 
 
-def lu_btran(state: LUState, y, steps: int):
-    """v = y B^-1 (row form) through the ring's first ``steps`` slots and the
+def lu_btran(state: LUState, y, steps: Optional[int] = None):
+    """v = y B^-1 (row form) through the ring (``eta_ring.eta_btran``: its
+    live slots on a card, else the first ``steps``, all by default) and the
     factors."""
-    y = _apply_etas_btran(state.eta_vals, state.eta_rows, state.eta_count, y, steps)
+    y = eta_ring.eta_btran(state.eta_vals, state.eta_rows, state.eta_count, y, steps)
     return _lu_solve(state.lu, state.piv, state.B0, y, trans=1)
 
 
@@ -202,7 +172,9 @@ def _lu_iteration(
 ) -> LUState:
     """One simplex pivot on the LU + eta state (the JAX package's
     ``make_lu_iteration``), written to the ring in place: the chunk passes
-    its own copy.  ``steps`` bounds the live ring slots before this pivot."""
+    its own copy.  ``steps`` bounds the live ring slots before this pivot
+    (the plain loops' length; the kernel route reads the live count on the
+    device)."""
     M = A_scan.shape[0]
     cols = columns(shard, A_scan.shape[1], A_scan.device)
     N = cols.N
@@ -314,15 +286,18 @@ def lu_run_chunk(
     early_exit: Optional[bool] = None,
 ) -> LUState:
     """Run pivots until the eta ring fills, the chunk budget is spent, or the
-    phase terminates.  ``eta0`` is the ring's fill at entry (``eta_count``,
-    read on the host when not given): iteration i's eta loops run
-    ``min(K, eta0 + i)`` slots.  ``early_exit`` stops at the first inactive
-    iteration (default: on the CPU), a host read an iteration; without it
-    the chunk has no host read.  With a ``shard`` the column-sized inputs
-    are this rank's block; the replicated carry makes every rank take the
-    same branches."""
+    phase terminates.  Where the passes launch the eta-ring kernels
+    (``eta_ring.launches_kernel``: on a card) every
+    pass runs the ring's live slots and ``eta0`` is not read.  Else
+    ``eta0`` is the ring's fill at entry (``eta_count``, read on the host
+    when not given): iteration i's eta loops run ``min(K, eta0 + i)``
+    slots.  ``early_exit`` stops at the first inactive iteration (default:
+    on the CPU), a host read an iteration; without it the chunk has no host
+    read.  With a ``shard`` the column-sized inputs are this rank's block;
+    the replicated carry makes every rank take the same branches."""
     K = state.eta_vals.shape[0]
-    if eta0 is None:
+    kernel_route = eta_ring.launches_kernel(state.eta_vals)
+    if eta0 is None and not kernel_route:
         eta0 = int(state.eta_count)
     if early_exit is None:
         early_exit = A_scan.device.type == "cpu"
@@ -340,7 +315,7 @@ def lu_run_chunk(
             break
         state = _lu_iteration(
             state, A_scan, A_full, c, c_scan, candidate_mask, active,
-            min(K, eta0 + i), pricing=pricing, opt_tol=opt_tol, pivot_tol=pivot_tol,
-            shard=shard,
+            K if kernel_route else min(K, eta0 + i), pricing=pricing, opt_tol=opt_tol,
+            pivot_tol=pivot_tol, shard=shard,
         )
     return state

@@ -315,6 +315,22 @@ def lu_start(m=32, n=64, pad=32, dtype=np.float32, seed=0, capacity=60, device="
     return state, A_t, c1_t, c2_t, cand_t
 
 
+def eta_ring_case(M, K, dtype, fill, seed=0, repeat_rows=False):
+    """(eta_vals, eta_rows, eta_count, x) as numpy arrays for the eta-ring
+    passes (``relp_tpu_torch.ops.eta_ring``): a ring of K slots of length
+    M, every slot (the dead ones too) an eta with a pivot w_k[r_k] of
+    magnitude 1-2 and other entries of about 1/sqrt(M), its row drawn at
+    random (from the first three with ``repeat_rows``); the live count
+    ``fill`` and a Gaussian vector."""
+    rng = np.random.default_rng([M, K, fill, seed, int(repeat_rows)])
+    vals = rng.standard_normal((K, M)) / np.sqrt(M)
+    rows = rng.integers(0, min(M, 3) if repeat_rows else M, K)
+    signs = np.where(rng.random(K) < 0.5, -1.0, 1.0)
+    vals[np.arange(K), rows] = signs * (1.0 + rng.random(K))
+    x = rng.standard_normal(M)
+    return vals.astype(dtype), rows.astype(np.int32), np.int32(fill), x.astype(dtype)
+
+
 # The kinds of chunk of the LU, df32 and PDHG bodies that ``body_case``
 # builds: the LU chunk with steepest edge from an empty ring, from a ring
 # of LU_ETA0 etas, the same with phase 1's stop at zero and with Dantzig

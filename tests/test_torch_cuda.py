@@ -19,7 +19,13 @@ memory is the wrapper's formula; and solve_batch on CUDA must reach the
 CPU's verdicts and exact objectives through them.  The precision probe's
 kernels keep TF32 above 1e-6 relative error and the others below it, and
 agree with their plain version on the card (1e-6 * max|plain|, the outer
-product bitwise, two launches bitwise equal).
+product bitwise, two launches bitwise equal).  The eta-ring kernels give
+the bits of the plain FTRAN loop and of the ordered BTRAN twin at M = 30,
+384, 1920 and 1921, every ring fill, repeated rows and a zero pivot, with
+the vector in shared and in device memory, and above the 48 KB default of
+shared memory on every card; the slot-chain probe reads the last live
+slot; LU chunks entering with
+different ring fills replay one graph with the eager chunk's bits.
 The three other solve modes (``--mip``, ``--first-order``, ``--basis-inverse
 lu``) give the CPU's payload on knap6, and PDHG on CUDA walks the CPU's
 iterations.  A dense chunk replayed from its CUDA graph gives the eager
@@ -141,6 +147,156 @@ def test_scan_kernel_rejects_bad_arguments(cuda_device):
     for args in bad:
         with pytest.raises(ValueError):
             price_scan.fused_price_scan(args["P"], A, args["c"], args["gamma"], 1.0)
+
+
+# The eta ring of the LU engine (ops/eta_ring.py): K slots, the fills the
+# CPU tests take (empty, one eta, partial, full, and the count K + 1 of a
+# masked iteration's rho BTRAN on a full ring).
+ETA_K = 60
+ETA_FILLS = (0, 1, 23, ETA_K, ETA_K + 1)
+
+
+def _eta_bits(a, b) -> bool:
+    return a.dtype == b.dtype and torch.equal(a.reshape(-1).view(torch.uint8),
+                                              b.reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("shared", [None, False])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("M", [30, 384, 1920, 1921])
+def test_eta_ring_kernels_match_plain(cuda_device, M, dtype, shared):
+    """Both eta-ring kernels against their plain versions on the same CUDA
+    tensors, at every fill and with repeated rows: FTRAN the plain loop's
+    bits, BTRAN the ordered twin's (eta_btran_plain(..., order="kernel"));
+    the vector in shared memory (None: the wrapper's choice, which takes
+    it at all these sizes) and in device memory (False); one launch a call,
+    two launches bitwise equal."""
+    from relp_tpu_torch.ops import eta_ring
+    from relp_tpu_torch.testing import eta_ring_case
+
+    cases = [eta_ring_case(M, ETA_K, dtype, fill, seed=7) for fill in ETA_FILLS]
+    cases.append(eta_ring_case(M, ETA_K, dtype, 37, seed=7, repeat_rows=True))
+    for case in cases:
+        vals, rows, count, x = (torch.as_tensor(np.asarray(a), device=cuda_device)
+                                for a in case)
+        if shared is None:
+            assert eta_ring.fits_shared("ftran", x, ETA_K)
+        before = dict(eta_ring.LAUNCHES)
+        outs = {kind: [eta_ring._launch(kind, vals, rows, count, x, shared=shared)
+                       for _ in range(2)] for kind in ("ftran", "btran")}
+        torch.cuda.synchronize()
+        assert eta_ring.LAUNCHES == {k: n + 2 for k, n in before.items()}
+        plain = {"ftran": eta_ring.eta_ftran_plain(vals, rows, count, x),
+                 "btran": eta_ring.eta_btran_plain(vals, rows, count, x, order="kernel")}
+        for kind, (first, second) in outs.items():
+            assert _eta_bits(first, plain[kind]), (kind, int(count))
+            assert _eta_bits(first, second), (kind, int(count))
+        loop = eta_ring.eta_btran_plain(vals, rows, count, x)  # torch.matmul's order
+        scale = float(loop.double().abs().max())
+        tol = 1e-5 if dtype == np.float32 else 1e-12
+        assert float((outs["btran"][0].double() - loop.double()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_eta_ring_kernels_zero_pivot(cuda_device, dtype):
+    """A zero pivot w_k[r_k]: the plain versions' inf and NaN, and their
+    bits wherever they are not NaN."""
+    from relp_tpu_torch.ops import eta_ring
+    from relp_tpu_torch.testing import eta_ring_case
+
+    vals, rows, count, x = eta_ring_case(384, ETA_K, dtype, 9, seed=3)
+    vals[4, rows[4]] = 0.0
+    vals, rows, count, x = (torch.as_tensor(np.asarray(a), device=cuda_device)
+                            for a in (vals, rows, count, x))
+    for got, want in ((eta_ring.eta_ftran(vals, rows, count, x),
+                       eta_ring.eta_ftran_plain(vals, rows, count, x)),
+                      (eta_ring.eta_btran(vals, rows, count, x),
+                       eta_ring.eta_btran_plain(vals, rows, count, x, order="kernel"))):
+        assert not torch.isfinite(want).all()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        keep = ~torch.isnan(want)
+        assert _eta_bits(got[keep], want[keep])
+
+
+def test_eta_ring_kernels_reject_bad_arguments(cuda_device):
+    from relp_tpu_torch.ops import eta_ring
+
+    vals = torch.zeros((4, 6), device=cuda_device)
+    rows = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    count = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    x = torch.zeros(6, device=cuda_device)
+    for args in ((vals, rows, count, x.double()), (vals, rows.long(), count, x),
+                 (vals, rows, count.cpu(), x), (vals[:, :5], rows, count, x),
+                 (torch.zeros((6, 4), device=cuda_device).T, rows, count, x)):
+        for fn in (eta_ring.eta_ftran, eta_ring.eta_btran):
+            with pytest.raises(ValueError):
+                fn(*args)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_eta_ring_kernels_take_large_shared_memory_on_every_card(cuda_device, dtype):
+    """At M = 13,000 every shared launch needs more than the 48 KB a block
+    gets without opting in (52-209 KB): on each card of the process in
+    turn (the opt-in is per card), both kernels with the vector in shared
+    memory give their plain versions' bits."""
+    from relp_tpu_torch.ops import eta_ring
+    from relp_tpu_torch.testing import eta_ring_case
+
+    case = eta_ring_case(13000, ETA_K, dtype, 41, seed=9)
+    for index in range(torch.cuda.device_count()):
+        device = torch.device("cuda", index)
+        vals, rows, count, x = (torch.as_tensor(np.asarray(a), device=device)
+                                for a in case)
+        for kind in ("ftran", "btran"):
+            assert eta_ring.smem_bytes(kind, x.element_size(), ETA_K, 13000) > 48 * 1024
+            assert eta_ring.fits_shared(kind, x, ETA_K)
+        with torch.cuda.device(device):
+            got = {kind: eta_ring._launch(kind, vals, rows, count, x, shared=True)
+                   for kind in ("ftran", "btran")}
+            torch.cuda.synchronize()
+        assert _eta_bits(got["ftran"], eta_ring.eta_ftran_plain(vals, rows, count, x))
+        assert _eta_bits(got["btran"],
+                         eta_ring.eta_btran_plain(vals, rows, count, x, order="kernel"))
+
+
+@pytest.mark.parametrize("kind", ["ftran", "btran"])
+def test_slot_chain_probe_reads_the_last_live_slot(cuda_device, kind):
+    """The slot-chain probe (csrc/slot_chain.cu) walks the live slots: each
+    thread's output is the element of the last live w_k its neighbour
+    read, zero with no live slot."""
+    from relp_tpu_torch.testing import eta_ring_case
+    from relp_tpu_torch.tools.eta_ring_timing import slot_chain
+
+    vals, _rows, count, _x = (torch.as_tensor(np.asarray(a), device=cuda_device)
+                              for a in eta_ring_case(1920, ETA_K, np.float32, 59))
+    got = slot_chain(kind, vals, count)
+    assert torch.equal(got, vals[58, (torch.arange(1024, device=cuda_device) + 1) % 1024])
+    assert not slot_chain(kind, vals, torch.zeros_like(count)).any()
+
+
+def test_graphed_lu_chunks_replay_one_eta_ring_capture(cuda_device):
+    """LU chunks entering with different ring fills replay one CUDA graph
+    (the eta-ring kernels read the fill on the device), each bitwise equal
+    to the eager chunk with the kernels, a replay counting the eager
+    chunk's eta-ring launches."""
+    from relp_tpu_torch.simplex import graphs, kernels, lu
+    from relp_tpu_torch.testing import lu_start
+
+    state, A, c1, _c2, mask = lu_start(m=120, n=264, pad=64, seed=7, capacity=60,
+                                       device=cuda_device)
+    kw = dict(pricing=kernels.PRICE_STEEPEST, chunk=20, opt_tol=1e-7, pivot_tol=1e-7,
+              degen_tol=1e-7)
+    cache, eager, graphed, entries = graphs.ChunkGraphs(), state, state, []
+    for _ in range(3):
+        entries.append(int(eager.eta_count))
+        eager, n_eager = _counted(
+            lambda: lu.lu_run_chunk(eager, A, A, c1, mask, early_exit=False, **kw))
+        graphed, n_graphed = _counted(lambda: cache.lu_run_chunk(graphed, A, A, c1, mask,
+                                                                 **kw))
+        assert n_graphed == n_eager and n_eager["eta_ftran"] > 0 and n_eager["eta_btran"] > 0
+        _state_bits_equal(graphed, eager)
+    assert len(set(entries)) == 3
+    assert cache.captured(lu.lu_run_chunk, "eta0") == {None: 1}
 
 
 # An aligned chunk (rows of 16-byte multiples), an unaligned one (N * 4 not
