@@ -115,11 +115,12 @@ graphs=captures/replays/capture seconds of the path):
                    replayed on its first bf16 inputs after the path's
                    launches are read (main/bf16/kernel);
 
- 13. mip/small     knap6 through the CLI with --mip, --first-order and
-                   --basis-inverse lu: exact -30, certified; the MIP's best
-                   bound -30 and its incumbent exactly feasible; the
-                   first-order crossover's warm finish (fewer pivots than
-                   the cold solve);
+ 13. mip/small     knap6 through the CLI with --mip, --first-order,
+                   --basis-inverse lu, and that with --pricing dantzig (a
+                   pivot's one BTRAN: eta_btran of one vector): exact -30,
+                   certified; the MIP's best bound -30 and its incumbent
+                   exactly feasible; the first-order crossover's warm
+                   finish (fewer pivots than the cold solve);
  14. mip/real      solve_mip (f32 defaults: cuts, strong branching, dive;
                    64 nodes a wave, cut at 319 nodes) on the Chu-Beasley
                    knapsack of relp_tpu_torch.testing: a rigorous exact
@@ -170,15 +171,24 @@ graphs=captures/replays/capture seconds of the path):
                    host launches and device-busy time per pivot; then the
                    same solve with eager chunks up to its 20th chunk, which
                    it must enter with the graphed run's state, bit for bit.
+                   lu/solve: one _lu_solve at the path's M under the
+                   profiler with shapes and stacks, adjoint False and
+                   True: the op that launches torch's strided
+                   _elementwise_kernel<128, 8, ...>, its operand's shape
+                   and strides, and its launches a pivot.
                    After the paths' launches are read, lu/kernel: that 20th
-                   chunk run eagerly once more, and eta_ftran/eta_btran on
-                   the inputs of its first and last call of each against
+                   chunk run eagerly once more, and eta_ftran and the
+                   BTRAN pair (eta_btran_pair; also eta_btran, one vector,
+                   on the pair's first) on the inputs of every call against
                    their plain versions (the plain FTRAN loop and the
-                   ordered BTRAN twin), bit for bit, timed warm and
-                   L2-cold, at no live slot and with the vector in device
-                   memory, beside the slot-chain probe (the live slots'
-                   L2 reads and barriers alone), the torch loop over the
-                   live slots replayed from a graph, and the bound.
+                   ordered BTRAN twin), bit for bit; on the first and the
+                   last call each timed warm and L2-cold and at no live
+                   slot, beside the slot-chain probe (a pass that makes the
+                   whole vector wait on each slot: the live slots' L2 reads
+                   and barriers alone), the torch loops over the live slots
+                   replayed from a graph, and the bound; the text line also
+                   shows the one-block design's times as PERF.md records
+                   them (not measured in the run).
  19. df32/real, df32/profile, df32/real/eager, df32/kernel
                    main/real's LP with the double-float carry
                    (carry="df32"), its chunks replayed from CUDA graphs:
@@ -225,7 +235,7 @@ A `[time] phase=<name> s=<seconds>` line follows every phase (a phase run
 inside another, mesh/lu, is not counted twice), and `[time] total_s=...`
 the last of them.  Then a JSON line describing each kernel (eight: the
 scan, the two batched-pivot kernels, the probe's three and the two
-eta-ring kernels) with its time, its plain
+eta-ring kernels, BTRAN's timed as the pair) with its time, its plain
 version's, its bound (the larger of its bytes at 3.35 TB/s and its
 operations at the H100's peak for their type), the library yardstick,
 its error on mip/real's inputs (the scan's also on main/real's,
@@ -1872,7 +1882,8 @@ def phase_mip_small(cold_pivots):
     from relp_tpu_torch.io import load_general_form
 
     path = os.path.join(HERE, "tests", "data", "knap6.mps")
-    for mode in (["--mip"], ["--first-order"], ["--basis-inverse", "lu"]):
+    for mode in (["--mip"], ["--first-order"], ["--basis-inverse", "lu"],
+                 ["--basis-inverse", "lu", "--pricing", "dantzig"]):
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             rc = cli(["solve", "--json", "--values", *mode, path])
@@ -2562,6 +2573,7 @@ def phase_lu_real(torch, found):
     found.update(result=result, solve_ms_per_pivot=solve_s / pivots * 1e3, replay=replay,
                  state=state, prefix_s=calls[_PROFILED_CHUNK - 1] - t0)
     _line("lu/profile", chunk=_PROFILED_CHUNK, path="graph", **replay.fields())
+    _name_strided_op(torch, state)
     return lambda: phase_lu_kernel(torch, kept["run_chunk"])
 
 
@@ -2622,42 +2634,75 @@ def _split_line(label, split, solve_s, pivots):
           rest_s=f"{rest:.3f}", **_CARD)
 
 
-def _eta_bound(kind, n, M, itemsize):
-    """(bound_ms, bound_by) of an eta-ring pass over ``n`` live slots: the
-    live ring and its rows read once, the vector read and written, the
-    count read; 2M + 1 (FTRAN) or 2M + 3 (BTRAN) operations a slot."""
-    bytes_moved = n * M * itemsize + 2 * M * itemsize + 4 * n + 4
-    ops = n * (2 * M + (1 if kind == "ftran" else 3))
+# The one-block design that the eta-ring kernels replaced (one block
+# walking the live slots, the whole vector waiting on each): its times on
+# lu/real's last call of each pass (K = 60, M = 1920, f32, 59 live slots),
+# us warm / L2-cold, as PERF.md section 6 records them (NVIDIA H100 80GB
+# HBM3, 700.00 W).  Not measured here: printed beside this run's times on
+# the text line only.  An LU pivot ran two of its BTRANs where the pair
+# runs.
+_ONE_BLOCK_RECORDED_US = {"eta_ftran": (39.46, 72.22), "eta_btran": (48.88, 80.55),
+                          "eta_btran_pair": (97.76, 161.10)}
+
+
+def _eta_bound(kind, n, M, itemsize, n_b=0):
+    """(bound_ms, bound_by) of an eta-ring pass over ``n`` live slots (the
+    pair: ``n`` and ``n_b``, through one read of the ring): the live ring
+    and its rows read once, each vector read and written, the counts read;
+    2M + 1 (FTRAN) or 2M + 3 (BTRAN) operations a slot and vector."""
+    vectors = 2 if kind == "pair" else 1
+    slots = max(n, n_b)
+    bytes_moved = slots * (M * itemsize + 4) + vectors * (2 * M * itemsize + 4)
+    ops = (n + n_b) * (2 * M + (1 if kind == "ftran" else 3))
     return _bound(bytes_moved, ops, F64_FLOPS if itemsize == 8 else F32_FLOPS)
+
+
+def _eta_entries(kind, inputs):
+    """{name: (launch, plain version, inputs)} of one kept eta-ring call
+    (the pair's launch and plain version return two vectors): FTRAN
+    against the plain loop; the pair, and eta_btran on its first vector,
+    against the ordered twin."""
+    from relp_tpu_torch.ops import eta_ring
+
+    if kind == "ftran":
+        return {"eta_ftran": (lambda: eta_ring.eta_ftran(*inputs),
+                              lambda: eta_ring.eta_ftran_plain(*inputs), inputs)}
+    single = inputs[:4]
+    return {
+        "eta_btran_pair": (lambda: eta_ring.eta_btran_pair(*inputs),
+                           lambda: eta_ring.eta_btran_pair_plain(*inputs, order="kernel"),
+                           inputs),
+        "eta_btran": (lambda: eta_ring.eta_btran(*single),
+                      lambda: eta_ring.eta_btran_plain(*single, order="kernel"), single),
+    }
+
+
+def _flat(torch, out):
+    """One tensor of an entry's output (the pair's two vectors joined)."""
+    return torch.cat(out) if isinstance(out, tuple) else out
 
 
 def phase_lu_kernel(torch, chunk_args):
     """lu/kernel: lu/real's 20th chunk run once more, eagerly, from its kept
     entry state (``chunk_args``: the engine's run_chunk call), keeping the
-    inputs of the first and the last call of each eta-ring kernel (the
-    ring's fill at entry and its largest); on each, the kernel against its
-    plain version (FTRAN: the plain loop; BTRAN: the ordered twin), bit for
-    bit; the kernel's device ms warm and L2-cold (after a 128 MB read), at
-    the same ring with no live slot, with the vector in device memory (the
-    launch for a vector too large for shared memory: the same bits), the
-    slot-chain probe's (csrc/slot_chain.cu: the live slots' L2 reads and
-    barriers alone) warm, L2-cold and with no live slot, the plain loop as
-    the torch route ran it (its live slots, replayed from a graph; BTRAN
-    also with the ordered twin's dot), and the bound.  Returns {kernel: the
-    last call's fields} for the kernels line."""
+    inputs of every call of eta_ftran and of eta_btran_pair (the ring's fill
+    from its entry to its largest).  On every call each entry against its
+    plain version bit for bit, twice (FTRAN: the plain loop; the pair, and
+    eta_btran on its first vector: the ordered twin); on the first and the
+    last call the times (``_time_eta``).  Returns {kernel: the last call's
+    fields} for the kernels line."""
     from relp_tpu_torch.ops import eta_ring
     from relp_tpu_torch.simplex import graphs
 
     (engine, state, *args), kwargs = chunk_args
-    first, last = {}, {}
+    calls = {"ftran": [], "pair": []}
 
     def keeping(kind):
         def wrapper(fn):
-            def run(eta_vals, eta_rows, eta_count, x, steps=None):
-                inputs = tuple(t.clone() for t in (eta_vals, eta_rows, eta_count, x))
-                first.setdefault(kind, inputs)
-                last[kind] = inputs
-                return fn(eta_vals, eta_rows, eta_count, x, steps)
+            def run(*inputs):
+                calls[kind].append(tuple(t.clone() for t in inputs
+                                         if isinstance(t, torch.Tensor)))
+                return fn(*inputs)
             return run
         return wrapper
 
@@ -2665,73 +2710,202 @@ def phase_lu_kernel(torch, chunk_args):
     graphs.DEVICE_TYPES = ()  # the chunk eager: the wrappers run every call
     try:
         with _wrapped(eta_ring, "eta_ftran", keeping("ftran")), \
-                _wrapped(eta_ring, "eta_btran", keeping("btran")):
+                _wrapped(eta_ring, "eta_btran_pair", keeping("pair")):
             out = type(engine).run_chunk(engine, state, *args, **kwargs)
     finally:
         graphs.DEVICE_TYPES = keep
     torch.cuda.synchronize()
     _check(int(out.iteration) > int(state.iteration), "lu/kernel: the chunk took no pivot")
     found = {}
-    for kind in ("ftran", "btran"):
-        for at, inputs in (("entry", first[kind]), ("last", last[kind])):
-            found[f"eta_{kind}"] = _hold_eta(torch, kind, at, inputs)
+    for kind, kept in calls.items():
+        _check(bool(kept), f"lu/kernel: the chunk never called the {kind} entry")
+        fills = []
+        for inputs in kept:
+            fills.append(int(inputs[2]))
+            for name, (launch, plain, _inputs) in _eta_entries(kind, inputs).items():
+                got, again, want = (_flat(torch, f()) for f in (launch, launch, plain))
+                torch.cuda.synchronize()
+                _check(torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+                       and torch.equal(got.view(torch.uint8), again.view(torch.uint8)),
+                       f"lu/kernel: {name} differs from its plain version at fill "
+                       f"{fills[-1]}")
+        _line("lu/kernel", entry=kind, calls_checked=len(kept), bitwise_plain=True,
+              repeat_bitwise=True, fills=f"{min(fills)}..{max(fills)}")
+        for at, inputs in (("entry", kept[0]), ("last", kept[-1])):
+            found.update(_time_eta(torch, kind, at, inputs))
     return found
 
 
-def _hold_eta(torch, kind, at, inputs):
-    """One eta-ring kernel on one kept call's inputs: its line, and its
-    fields for the kernels line."""
+def _time_eta(torch, kind, at, inputs):
+    """One kept call's times and their lines, for each entry of the call
+    (FTRAN; or the pair, and eta_btran on its first vector): the kernel
+    warm, L2-cold and with no live slot; the slot-chain probe on the same
+    ring (the floor of a pass that makes the whole vector wait on each
+    slot; the pair's is two BTRAN chains, as that design ran two launches);
+    the torch route's loops over the live slots and, for BTRAN, the
+    ordered twin, replayed from a graph; the bound.  Returns {kernel:
+    fields} for the kernels line."""
     from relp_tpu_torch.ops import eta_ring
     from relp_tpu_torch.tools.eta_ring_timing import slot_chain
 
-    vals, rows, count, x = inputs
-    K, M = vals.shape
-    n = min(int(count), K)
-    kernel = eta_ring.eta_ftran if kind == "ftran" else eta_ring.eta_btran
-    ordered = {} if kind == "ftran" else dict(order="kernel")
-    plain = eta_ring.eta_ftran_plain if kind == "ftran" else eta_ring.eta_btran_plain
-    got, again = kernel(*inputs), kernel(*inputs)
-    want = plain(*inputs, **ordered)
-    torch.cuda.synchronize()
-    same = (torch.equal(got.view(torch.uint8), want.view(torch.uint8))
-            and torch.equal(got.view(torch.uint8), again.view(torch.uint8)))
-    _check(same, f"lu/kernel: eta_{kind} differs from its plain version at fill {n}")
-    err = float((got.double() - want.double()).abs().max())
-    empty = torch.zeros_like(count)
-    device_memory = lambda: eta_ring._launch(kind, *inputs, shared=False)  # noqa: E731
-    _check(torch.equal(device_memory().view(torch.uint8), got.view(torch.uint8)),
-           f"lu/kernel: eta_{kind} in device memory differs at fill {n}")
-    chain = lambda: slot_chain(kind, vals, count)  # noqa: E731
-    times = {
-        "ms": _graph_ms(torch, lambda: kernel(*inputs)),
-        "cold_ms": _graph_ms(torch, lambda: kernel(*inputs), flush=_flush(torch)),
-        "empty_ms": _graph_ms(torch, lambda: kernel(vals, rows, empty, x)),
-        "device_ms": _graph_ms(torch, device_memory),
-        "device_cold_ms": _graph_ms(torch, device_memory, flush=_flush(torch)),
-        "chain_ms": _graph_ms(torch, chain),
-        "chain_cold_ms": _graph_ms(torch, chain, flush=_flush(torch)),
-        "chain_empty_ms": _graph_ms(torch, lambda: slot_chain(kind, vals, empty)),
-        "plain_ms": _graph_ms(torch, lambda: plain(*inputs, steps=n)),
-    }
-    if kind == "btran":
-        times["ordered_plain_ms"] = _graph_ms(
-            torch, lambda: plain(*inputs, steps=n, order="kernel"))
-        loop = plain(*inputs, steps=n)
-        scale = float(loop.double().abs().max())
-        vs_loop = float((got.double() - loop.double()).abs().max()) / max(scale, 1e-300)
-    bound_ms, bound_by = _eta_bound(kind, n, M, x.element_size())
-    per_slot_us = (times["ms"] - times["empty_ms"]) / n * 1e3 if n else None
-    _line("lu/kernel", kernel=f"eta_{kind}", at=at, K=K, M=M,
-          dtype=str(x.dtype).replace("torch.", ""), live_slots=n,
-          bitwise_plain=True, repeat_bitwise=True, max_abs_err=f"{err:.3e}",
-          **({"rel_err_vs_matmul_loop": f"{vs_loop:.3e}"} if kind == "btran" else {}),
-          **{k: f"{v:.5f}" for k, v in times.items()},
-          us_per_live_slot=f"{per_slot_us:.4f}" if per_slot_us is not None else "none",
-          bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
-          bound_share=f"{bound_ms / times['ms']:.4f}",
-          chain_share=f"{times['chain_ms'] / times['ms']:.4f}", **_CARD)
-    return dict(max_abs_err=err, live_slots=n, shape=[K, M], bound_ms=bound_ms,
-                bound_by=bound_by, us_per_live_slot=per_slot_us, **times)
+    K, M = inputs[0].shape
+    flush = _flush(torch)
+    found = {}
+    for name, (launch, ordered, args) in _eta_entries(kind, inputs).items():
+        vals, rows = args[:2]
+        counts = args[2::2]
+        live = [min(max(int(c), 0), K) for c in counts]
+        got = _flat(torch, launch())
+        err = float((got.double() - _flat(torch, ordered()).double()).abs().max())
+        empty = tuple(torch.zeros_like(t) if t.dim() == 0 else t for t in args)
+        chain_kind = "ftran" if kind == "ftran" else "btran"
+
+        def chain(counts=counts, chain_kind=chain_kind, vals=vals):
+            for c in counts:
+                slot_chain(chain_kind, vals, c)
+
+        if kind == "ftran":
+            loop = lambda: eta_ring.eta_ftran_plain(*args, steps=live[0])  # noqa: E731
+        elif len(counts) == 1:
+            loop = lambda: eta_ring.eta_btran_plain(*args, live[0])  # noqa: E731
+        else:
+            loop = lambda: eta_ring.eta_btran_pair_plain(*args, *live)  # noqa: E731
+        times = {
+            "ms": _graph_ms(torch, launch),
+            "cold_ms": _graph_ms(torch, launch, flush=flush),
+            "empty_ms": _graph_ms(torch, _eta_entries(kind, empty)[name][0]),
+            "chain_ms": _graph_ms(torch, chain),
+            "chain_cold_ms": _graph_ms(torch, chain, flush=flush),
+            "plain_ms": _graph_ms(torch, loop),
+        }
+        extra = {}
+        if kind != "ftran":
+            times["ordered_plain_ms"] = _graph_ms(torch, ordered)
+            loop_out = _flat(torch, loop())
+            scale = float(loop_out.double().abs().max())
+            extra["rel_err_vs_matmul_loop"] = (
+                float((got.double() - loop_out.double()).abs().max()) / max(scale, 1e-300))
+        bound_kind = "pair" if len(counts) == 2 else chain_kind
+        bound_ms, bound_by = _eta_bound(bound_kind, live[0], M, vals.element_size(),
+                                        live[1] if len(counts) == 2 else 0)
+        fields = dict(max_abs_err=err, live_slots=live, shape=[K, M], bound_ms=bound_ms,
+                      bound_by=bound_by, **extra, **times)
+        recorded = _ONE_BLOCK_RECORDED_US[name]
+        _line("lu/kernel", kernel=name, at=at, K=K, M=M,
+              dtype=str(vals.dtype).replace("torch.", ""),
+              live_slots="/".join(map(str, live)), bitwise_plain=True,
+              max_abs_err=f"{err:.3e}", **{k: f"{v:.3e}" for k, v in extra.items()},
+              **{k: f"{v:.5f}" for k, v in times.items()},
+              below_chain=times["ms"] < times["chain_ms"],
+              bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+              bound_share=f"{bound_ms / times['ms']:.4f}",
+              one_block_design_recorded_warm_cold_us="/".join(f"{t:.2f}" for t in recorded),
+              recorded_in="PERF.md section 6 (not this run)", **_CARD)
+        found[name] = fields
+    return found
+
+
+def _name_strided_op(torch, state):
+    """lu/solve: ``_profile_lu_solve`` on ``state``'s factors (saved to a
+    temporary file) in a fresh process: in this one, which has profiled
+    and captured graphs before, the trace of the solve held no kernel on
+    the card."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "factors.pt")
+        torch.save({"lu": state.lu.cpu(), "piv": state.piv.cpu(), "B0": state.B0.cpu()}, path)
+        code = (f"import json, sys, torch; sys.path.insert(0, {HERE!r}); import chip_smoke; "
+                f"chip_smoke._CARD.update(json.loads({json.dumps(json.dumps(_CARD))})); "
+                f"chip_smoke._profile_lu_solve(torch, {path!r})")
+        done = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              timeout=600)
+    print(done.stdout, end="", flush=True)
+    _check(done.returncode == 0, f"lu/solve: the profiling process failed: {done.stderr[-2000:]}")
+
+
+def _profile_lu_solve(torch, path):
+    """One ``_lu_solve`` (the f32 factors' solve and its refinement step)
+    on the factors saved at ``path`` (lu, piv, B0), under the profiler with
+    shapes and stacks, with adjoint False (FTRAN's) and True (the BTRANs'):
+    each op that launches torch's ``_elementwise_kernel<128, 8, ...>`` (the
+    trace links a kernel to its op by the op's external id), the ops around
+    it, its operands' shapes and strides, the caller in the port, its
+    launches and device us a solve; then its launches and us a
+    steepest-edge pivot (one solve with adjoint False, two with True)."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from relp_tpu_torch.simplex import lu as lu_mod
+
+    state = SimpleNamespace(**{k: v.cuda() for k, v in torch.load(path).items()})
+
+    def squeeze(value):
+        return str(value).replace(" ", "")
+
+    def around(event, pool):
+        """The events of ``pool`` on ``event``'s thread that enclose it,
+        innermost first."""
+        t0, t1 = event["ts"], event["ts"] + event.get("dur", 0)
+        outer = [e for e in pool if e is not event and e.get("tid") == event.get("tid")
+                 and e["ts"] <= t0 and e["ts"] + e.get("dur", 0) >= t1]
+        return sorted(outer, key=lambda e: e.get("dur", 0))
+
+    M = state.B0.shape[0]
+    rhs = torch.linspace(-1.0, 1.0, M, dtype=state.B0.dtype, device=state.B0.device)
+    per_solve = {}
+    for trans in (0, 1):
+        lu_mod._lu_solve(state.lu, state.piv, state.B0, rhs, trans)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=True, with_stack=True) as prof:
+            lu_mod._lu_solve(state.lu, state.piv, state.B0, rhs, trans)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        ops = [e for e in events if e.get("cat") == "cpu_op"]
+        frames = [e for e in events if e.get("cat") == "python_function"]
+        by_id = {e.get("args", {}).get("External id"): e for e in ops}
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        hits = {}
+        for k in kernels:
+            if "_elementwise_kernel<128, 8" in k["name"] and "scatter_gather" not in k["name"]:
+                hits.setdefault(k.get("args", {}).get("External id"), []).append(k)
+        launches, us = 0, 0.0
+        for ext, ks in hits.items():
+            op = by_id.get(ext)
+            args = op.get("args", {}) if op else {}
+            caller = [e["name"] for e in around(op, frames) if "relp_tpu_torch" in e["name"]][:1] \
+                if op else []
+            launches += len(ks)
+            us += sum(k.get("dur", 0.0) for k in ks)
+            _line("lu/solve", adjoint=bool(trans), M=M, op=op["name"] if op else "not linked",
+                  parents=">".join(e["name"] for e in around(op, ops)[:4]) if op else "none",
+                  input_dims=squeeze(args.get("Input Dims", "not recorded")),
+                  input_strides=squeeze(args.get("Input Strides", "not recorded")),
+                  input_types=squeeze(args.get("Input type", "not recorded")),
+                  caller=squeeze(caller[0]) if caller else "not recorded",
+                  launches=len(ks), device_us=f"{sum(k.get('dur', 0.0) for k in ks):.2f}",
+                  functor=squeeze(ks[0]["name"].split("_elementwise_kernel<128, 8,")[-1][:90]))
+        if not launches:  # name what the solve did launch instead
+            named = {}
+            for k in kernels:
+                op = by_id.get(k.get("args", {}).get("External id"))
+                key = (op["name"] if op else "not linked", squeeze(k["name"][:60]))
+                named[key] = named.get(key, 0) + 1
+            _line("lu/solve", adjoint=bool(trans), M=M, found="none", kernels_by_op=";".join(
+                f"{op}:{kernel}x{n}" for (op, kernel), n in named.items()) or "none")
+        per_solve[trans] = (launches, us)
+    launches = per_solve[0][0] + 2 * per_solve[1][0]
+    us = per_solve[0][1] + 2 * per_solve[1][1]
+    _line("lu/solve", summary=True, M=M, lu_strides=squeeze(tuple(state.lu.stride())),
+          launches_per_solve=f"{per_solve[0][0]}/{per_solve[1][0]}",
+          launches_per_pivot=launches, device_ms_per_pivot=f"{us / 1e3:.4f}", **_CARD)
 
 
 # The chunk of lu/real, df32/real and mesh/lu replayed under the profiler.
@@ -3405,10 +3579,12 @@ def phase_other_modes(torch, np, device, knap6_pivots, main_result):
                f"{path} never launched the scan kernel")
     _check(by_path["main/bf16"]["fused_price_scan_bfloat16"] > 0,
            "main/bf16 never launched the scan kernel on its bf16 tableau")
-    for path in ("lu/real", "lu/real/eager", "mesh/lu"):
-        for kind in ("ftran", "btran"):
-            _check(by_path[path][f"eta_{kind}"] > 0,
-                   f"{path} never launched the eta_{kind} kernel")
+    for path, names in (("lu/real", ("eta_ftran", "eta_btran_pair")),
+                        ("lu/real/eager", ("eta_ftran", "eta_btran_pair")),
+                        ("mesh/lu", ("eta_ftran", "eta_btran_pair")),
+                        ("mip/small", ("eta_ftran", "eta_btran", "eta_btran_pair"))):
+        for name in names:
+            _check(by_path[path][name] > 0, f"{path} never launched {name}")
     scans = {path: replays[path]() for path in ("main/bf16", "mip/real64", "df32/real",
                                                  "mesh/world1")}
     mip = replays["mip/real"]()
@@ -3555,31 +3731,42 @@ def main() -> int:
             **fields,
             "shape": [256, 256],
         })
-    for kind, line in (("ftran", "77"), ("btran", "98")):
-        name = f"eta_{kind}"
+    # eta_ftran and the pair: lu/real's launches; eta_btran (one vector)
+    # runs on no steepest-edge pivot, so its count is mip/small's (the LU
+    # engine with Dantzig pricing).
+    for name, line, path, per in (
+        ("eta_ftran", "77", "lu/real", "one launch"),
+        ("eta_btran", "98", "mip/small", "one launch of one vector (the pair's first)"),
+        ("eta_btran_pair", "98", "lu/real",
+         "one launch of two vectors, rho's and the Goldfarb BTRAN (its plain version "
+         "two torch loops)"),
+    ):
         fields = eta[name]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": "relp_tpu_torch/csrc/eta_ring.cu",
             "replaces": f"relp_tpu/simplex/lu.py:{line} (XLA fori_loop, no Pallas)",
-            "launches": by_path["lu/real"][name],
+            "launches": by_path[path][name],
+            "launches_from": path,
             "max_abs_err": fields["max_abs_err"],
+            **({"rel_err_vs_matmul_loop": fields["rel_err_vs_matmul_loop"]}
+               if name != "eta_ftran" else {}),
             "ms": fields["ms"],
             "cold_ms": fields["cold_ms"],
             "empty_ring_ms": fields["empty_ms"],
-            "device_memory_ms": fields["device_ms"],
             "slot_chain_ms": fields["chain_ms"],
+            "slot_chain_cold_ms": fields["chain_cold_ms"],
             "plain_ms": fields["plain_ms"],
-            **({"ordered_plain_ms": fields["ordered_plain_ms"]} if kind == "btran" else {}),
+            **({"ordered_plain_ms": fields["ordered_plain_ms"]}
+               if name != "eta_ftran" else {}),
             "bound_ms": fields["bound_ms"],
             "bound_by": fields["bound_by"],
             "library_ms": None,
             "shape": fields["shape"],
             "live_slots": fields["live_slots"],
-            "us_per_live_slot": fields["us_per_live_slot"],
-            "per": "one pass on lu/real's 20th chunk's last call (plain: the torch "
-                   "loop over the live slots, replayed from a graph)",
+            "per": f"{per} on lu/real's 20th chunk's last call (plain: the torch loop "
+                   "over the live slots, replayed from a graph)",
         })
     for entry in kernels:
         entry["launches_by_path"] = {path: counts[entry["name"]]

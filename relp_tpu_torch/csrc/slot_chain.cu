@@ -1,23 +1,24 @@
-// Latency probe of the eta-ring kernels' slot chain on Hopper (sm_90a):
-// what one slot costs when it does nothing but wait for the card.
-// relp_tpu_torch/tools/eta_ring_timing.py and chip_smoke.py's lu/kernel
-// time it beside csrc/eta_ring.cu on the same ring.  Replaces no kernel and
-// runs on no solver path.
+// Latency probe of a slot chain that makes the whole vector wait on each
+// slot, on Hopper (sm_90a): what one slot costs when it does nothing but
+// wait for the card.  relp_tpu_torch/tools/eta_ring_timing.py and
+// chip_smoke.py's lu/kernel time it beside csrc/eta_ring.cu on the same
+// ring.  Replaces no kernel and runs on no solver path.
 //
-// The eta-ring kernels run the live slots one after another in one block of
-// 1,024 threads: a slot needs the vector the slot before left, so it costs
-// at least one round trip to L2 for w_k and the block's barriers, whatever
-// M.  The probe keeps exactly that and drops the arithmetic:
+// A pass that walks the live slots one after another in one block of 1,024
+// threads, the whole vector updated at each slot, pays per slot at least
+// one round trip to L2 for w_k and the block's barriers, whatever M.  The
+// probe keeps exactly that and drops the arithmetic:
 //
 //   FTRAN chain, each live slot k:  every thread reads one element of w_k
 //     (from L2: the row is new to the block's L1), at an index that depends
 //     on the slot before; writes it to shared memory; one barrier.
 //   BTRAN chain, each live slot k:  the same read; the warp's halving tree
-//     of shuffles, one barrier, warp 0's tree, one barrier (the reduction
-//     of eta_btran_kernel, with no products).
+//     of shuffles, one barrier, warp 0's tree, one barrier (a block-wide
+//     dot's reduction, with no products).
 //
-// Its time at n live slots is the card's own floor under an n-slot pass,
-// measured with no term of the eta-ring kernels' code in it.
+// Its time at n live slots is the floor of that design under an n-slot
+// pass, not the card's: csrc/eta_ring.cu runs the chain on n scalars in one
+// warp instead, and its pass over the vector has no chain.
 //
 // C interface, loaded with ctypes; returns a cudaError_t.
 
@@ -25,7 +26,7 @@
 
 namespace {
 
-constexpr int kThreads = 1024;  // eta_ring.cu's block
+constexpr int kThreads = 1024;  // eta_ring_timing.CHAIN_THREADS
 constexpr int kWarps = kThreads / 32;
 
 template <typename T, bool kBtran>

@@ -238,7 +238,8 @@ def launch_counts() -> Dict[str, int]:
     """Every kernel wrapper's launch counter: the scan's in all
     (``"scan"``) and by dtype (``"scan_<dtype>"``), the batched-pivot
     kernels' (``"resident"``, ``"blocked"``), the eta-ring kernels'
-    (``"eta_ftran"``, ``"eta_btran"``); and the mesh's collectives
+    (``"eta_ftran"``, ``"eta_btran"`` of one vector, ``"eta_btran_pair"``);
+    and the mesh's collectives
     (``"collectives"``, ``parallel.sharded.COLLECTIVES``)."""
     from relp_tpu_torch.parallel import sharded  # the package imports this module
 

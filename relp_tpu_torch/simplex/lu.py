@@ -20,7 +20,9 @@ Differences from the JAX code, and why:
   eta_count)``, one compiled device loop.  On a card
   (``eta_ring.launches_kernel``) a pass through the ring is one launch of
   ``ops.eta_ring``'s kernels, which read the live count on the device, so
-  a chunk's passes do not depend on the ring's fill at entry.  On the CPU
+  a chunk's passes do not depend on the ring's fill at entry; a
+  steepest-edge pivot's two BTRANs (rho's and the Goldfarb one, which read
+  the same ring) are one launch together.  On the CPU
   the plain loops run only the slots that can be in use: at iteration i of
   a chunk that started with e etas, at most e + i.  A slot past the live
   count is a masked identity, so the bits are those of the full masked
@@ -229,15 +231,24 @@ def _lu_iteration(
     eta_count_new = state.eta_count + do_pivot.to(torch.int32)
 
     # Duals: pi' = pi + d_q rho_r with rho_r = e_r B_new^-1, BTRAN of e_r
-    # through the ring with the new eta.
+    # through the ring with the new eta.  Steepest edge also needs v =
+    # w B_old^-1, w's BTRAN through the ring without it: both passes read
+    # the ring as it is now, so they are one pair (one launch on a card,
+    # two plain loops on the CPU).
     e_r = _e(r, M, A_full.dtype, A_full.device)
-    rho_new = lu_btran(state._replace(eta_count=state.eta_count + 1), e_r, min(K, steps + 1))
+    ring = (state.eta_vals, state.eta_rows)
+    if pricing == PRICE_STEEPEST:
+        y_rho, y_w = eta_ring.eta_btran_pair(*ring, state.eta_count + 1, e_r,
+                                             state.eta_count, w, min(K, steps + 1), steps)
+    else:
+        y_rho = eta_ring.eta_btran(*ring, state.eta_count + 1, e_r, min(K, steps + 1))
+    rho_new = _lu_solve(state.lu, state.piv, state.B0, y_rho, trans=1)
     pi_new = state.pi + d_q_full * rho_new
     obj_new = torch.matmul(cB_new, xB_new)
 
     if pricing == PRICE_STEEPEST:
         gamma_q_val = (1.0 + torch.matmul(w, w)).to(scan_dtype)
-        v = lu_btran(state, w, steps).to(scan_dtype)  # the OLD inverse
+        v = _lu_solve(state.lu, state.piv, state.B0, y_w, trans=1).to(scan_dtype)
         abar = torch.matmul(rho_new.to(scan_dtype), A_scan)
         inner = torch.matmul(v, A_scan)
         gamma_new = gamma - 2.0 * abar * inner + (abar * abar) * gamma_q_val

@@ -20,10 +20,11 @@ CPU's verdicts and exact objectives through them.  The precision probe's
 kernels keep TF32 above 1e-6 relative error and the others below it, and
 agree with their plain version on the card (1e-6 * max|plain|, the outer
 product bitwise, two launches bitwise equal).  The eta-ring kernels give
-the bits of the plain FTRAN loop and of the ordered BTRAN twin at M = 30,
-384, 1920 and 1921, every ring fill, repeated rows and a zero pivot, with
-the vector in shared and in device memory, and above the 48 KB default of
-shared memory on every card; the slot-chain probe reads the last live
+the bits of the plain FTRAN loop and of the ordered BTRAN twin (one
+vector, and the pair of two through one launch) at M = 30, 384, 1920,
+1921 and 20,000, every ring fill, repeated rows, a zero pivot and a ring
+of K = 150 past their chain group, and above the 48 KB default of shared
+memory on every card; the slot-chain probe reads the last live
 slot; LU chunks entering with
 different ring fills replay one graph with the eager chunk's bits.
 The three other solve modes (``--mip``, ``--first-order``, ``--basis-inverse
@@ -161,57 +162,97 @@ def _eta_bits(a, b) -> bool:
                                               b.reshape(-1).view(torch.uint8))
 
 
-@pytest.mark.parametrize("shared", [None, False])
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("M", [30, 384, 1920, 1921])
-def test_eta_ring_kernels_match_plain(cuda_device, M, dtype, shared):
-    """Both eta-ring kernels against their plain versions on the same CUDA
-    tensors, at every fill and with repeated rows: FTRAN the plain loop's
-    bits, BTRAN the ordered twin's (eta_btran_plain(..., order="kernel"));
-    the vector in shared memory (None: the wrapper's choice, which takes
-    it at all these sizes) and in device memory (False); one launch a call,
-    two launches bitwise equal."""
-    from relp_tpu_torch.ops import eta_ring
+def _eta_cases(device, M, K, dtype, fills, seed):
+    """(vals, rows, count, x) on ``device`` at each fill, then 37 slots
+    (K - 1 past 37) on three rows again and again."""
     from relp_tpu_torch.testing import eta_ring_case
 
-    cases = [eta_ring_case(M, ETA_K, dtype, fill, seed=7) for fill in ETA_FILLS]
-    cases.append(eta_ring_case(M, ETA_K, dtype, 37, seed=7, repeat_rows=True))
-    for case in cases:
-        vals, rows, count, x = (torch.as_tensor(np.asarray(a), device=cuda_device)
-                                for a in case)
-        if shared is None:
-            assert eta_ring.fits_shared("ftran", x, ETA_K)
+    cases = [eta_ring_case(M, K, dtype, fill, seed=seed) for fill in fills]
+    cases.append(eta_ring_case(M, K, dtype, min(37, K - 1), seed=seed, repeat_rows=True))
+    return [tuple(torch.as_tensor(np.asarray(a), device=device) for a in case)
+            for case in cases]
+
+
+def _eta_calls(kind, vals, rows, count, x):
+    """(one launch, its plain version) of ``kind``: FTRAN against the plain
+    loop, BTRAN against the ordered twin; the pair on x and on another
+    vector whose count is one slot less (rho's and the Goldfarb BTRAN of an
+    LU pivot)."""
+    from relp_tpu_torch.ops import eta_ring
+
+    if kind == "ftran":
+        return (lambda: eta_ring.eta_ftran(vals, rows, count, x),
+                lambda: eta_ring.eta_ftran_plain(vals, rows, count, x))
+    if kind == "btran":
+        return (lambda: eta_ring.eta_btran(vals, rows, count, x),
+                lambda: eta_ring.eta_btran_plain(vals, rows, count, x, order="kernel"))
+    w = torch.flip(x, (0,)).contiguous()
+    count_b = torch.clamp_min(count - 1, 0)
+    return (lambda: torch.cat(eta_ring.eta_btran_pair(vals, rows, count, x, count_b, w)),
+            lambda: torch.cat(eta_ring.eta_btran_pair_plain(vals, rows, count, x, count_b, w,
+                                                            order="kernel")))
+
+
+@pytest.mark.parametrize("kind", ["ftran", "btran", "btran_pair"])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("M", [30, 384, 1920, 1921, 20000])
+def test_eta_ring_kernels_match_plain(cuda_device, M, dtype, kind):
+    """Each eta-ring entry against its plain version on the same CUDA
+    tensors, at every fill and with repeated rows: FTRAN the plain loop's
+    bits, BTRAN and the pair the ordered twin's (eta_btran_plain(...,
+    order="kernel")), and BTRAN within 1e-5 (f32) / 1e-12 (f64) of the
+    matmul loop relative to its largest entry; one launch a call, two
+    launches bitwise equal.  M from one tile and one block to 20,000 (79
+    tiles of BTRAN's cluster, 157 FTRAN blocks)."""
+    from relp_tpu_torch.ops import eta_ring
+
+    for vals, rows, count, x in _eta_cases(cuda_device, M, ETA_K, dtype, ETA_FILLS, 7):
+        launch, plain = _eta_calls(kind, vals, rows, count, x)
         before = dict(eta_ring.LAUNCHES)
-        outs = {kind: [eta_ring._launch(kind, vals, rows, count, x, shared=shared)
-                       for _ in range(2)] for kind in ("ftran", "btran")}
+        first, second = launch(), launch()
         torch.cuda.synchronize()
-        assert eta_ring.LAUNCHES == {k: n + 2 for k, n in before.items()}
-        plain = {"ftran": eta_ring.eta_ftran_plain(vals, rows, count, x),
-                 "btran": eta_ring.eta_btran_plain(vals, rows, count, x, order="kernel")}
-        for kind, (first, second) in outs.items():
-            assert _eta_bits(first, plain[kind]), (kind, int(count))
-            assert _eta_bits(first, second), (kind, int(count))
-        loop = eta_ring.eta_btran_plain(vals, rows, count, x)  # torch.matmul's order
-        scale = float(loop.double().abs().max())
-        tol = 1e-5 if dtype == np.float32 else 1e-12
-        assert float((outs["btran"][0].double() - loop.double()).abs().max()) <= tol * scale
+        assert eta_ring.LAUNCHES == {k: n + (2 if k == kind else 0) for k, n in before.items()}
+        assert _eta_bits(first, plain()), (kind, int(count))
+        assert _eta_bits(first, second), (kind, int(count))
+        if kind == "btran":
+            loop = eta_ring.eta_btran_plain(vals, rows, count, x)  # torch.matmul's order
+            scale = float(loop.double().abs().max())
+            tol = 1e-5 if dtype == np.float32 else 1e-12
+            assert float((first.double() - loop.double()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_eta_ring_kernels_past_the_chain_group(cuda_device, dtype):
+    """K = 150, past the 64 slots of the kernels' chain group (whose G
+    sits in shared memory; past it the chain reads the ring from L2), at
+    fills 0, 1, 64, 65, 130, 150 and 151 and with repeated rows: every
+    entry the bits of its plain version."""
+    from relp_tpu_torch.ops import eta_ring
+
+    K = 150
+    assert K > eta_ring.CHAIN_SLOTS
+    for vals, rows, count, x in _eta_cases(cuda_device, 1920, K, dtype,
+                                           (0, 1, 64, 65, 130, K, K + 1), 11):
+        for kind in ("ftran", "btran", "btran_pair"):
+            launch, plain = _eta_calls(kind, vals, rows, count, x)
+            got = launch()
+            torch.cuda.synchronize()
+            assert _eta_bits(got, plain()), (kind, int(count))
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_eta_ring_kernels_zero_pivot(cuda_device, dtype):
     """A zero pivot w_k[r_k]: the plain versions' inf and NaN, and their
     bits wherever they are not NaN."""
-    from relp_tpu_torch.ops import eta_ring
     from relp_tpu_torch.testing import eta_ring_case
 
     vals, rows, count, x = eta_ring_case(384, ETA_K, dtype, 9, seed=3)
     vals[4, rows[4]] = 0.0
     vals, rows, count, x = (torch.as_tensor(np.asarray(a), device=cuda_device)
                             for a in (vals, rows, count, x))
-    for got, want in ((eta_ring.eta_ftran(vals, rows, count, x),
-                       eta_ring.eta_ftran_plain(vals, rows, count, x)),
-                      (eta_ring.eta_btran(vals, rows, count, x),
-                       eta_ring.eta_btran_plain(vals, rows, count, x, order="kernel"))):
+    for kind in ("ftran", "btran", "btran_pair"):
+        launch, plain = _eta_calls(kind, vals, rows, count, x)
+        got, want = launch(), plain()
         assert not torch.isfinite(want).all()
         assert torch.equal(torch.isnan(got), torch.isnan(want))
         keep = ~torch.isnan(want)
@@ -231,32 +272,29 @@ def test_eta_ring_kernels_reject_bad_arguments(cuda_device):
         for fn in (eta_ring.eta_ftran, eta_ring.eta_btran):
             with pytest.raises(ValueError):
                 fn(*args)
+        with pytest.raises(ValueError):
+            eta_ring.eta_btran_pair(args[0], args[1], count, x, args[2], args[3])
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_eta_ring_kernels_take_large_shared_memory_on_every_card(cuda_device, dtype):
-    """At M = 13,000 every shared launch needs more than the 48 KB a block
-    gets without opting in (52-209 KB): on each card of the process in
-    turn (the opt-in is per card), both kernels with the vector in shared
-    memory give their plain versions' bits."""
-    from relp_tpu_torch.ops import eta_ring
+    """At K = 150 an FTRAN block takes 99 KB (f64; 50 KB f32) of shared
+    memory, above the 48 KB a block gets without opting in: on each card of
+    the process in turn (the opt-in is per card), every entry gives its
+    plain version's bits."""
     from relp_tpu_torch.testing import eta_ring_case
 
-    case = eta_ring_case(13000, ETA_K, dtype, 41, seed=9)
+    case = eta_ring_case(13000, 150, dtype, 141, seed=9)
     for index in range(torch.cuda.device_count()):
         device = torch.device("cuda", index)
         vals, rows, count, x = (torch.as_tensor(np.asarray(a), device=device)
                                 for a in case)
-        for kind in ("ftran", "btran"):
-            assert eta_ring.smem_bytes(kind, x.element_size(), ETA_K, 13000) > 48 * 1024
-            assert eta_ring.fits_shared(kind, x, ETA_K)
         with torch.cuda.device(device):
-            got = {kind: eta_ring._launch(kind, vals, rows, count, x, shared=True)
-                   for kind in ("ftran", "btran")}
-            torch.cuda.synchronize()
-        assert _eta_bits(got["ftran"], eta_ring.eta_ftran_plain(vals, rows, count, x))
-        assert _eta_bits(got["btran"],
-                         eta_ring.eta_btran_plain(vals, rows, count, x, order="kernel"))
+            for kind in ("ftran", "btran", "btran_pair"):
+                launch, plain = _eta_calls(kind, vals, rows, count, x)
+                got = launch()
+                torch.cuda.synchronize()
+                assert _eta_bits(got, plain()), (kind, index)
 
 
 @pytest.mark.parametrize("kind", ["ftran", "btran"])
@@ -293,7 +331,9 @@ def test_graphed_lu_chunks_replay_one_eta_ring_capture(cuda_device):
             lambda: lu.lu_run_chunk(eager, A, A, c1, mask, early_exit=False, **kw))
         graphed, n_graphed = _counted(lambda: cache.lu_run_chunk(graphed, A, A, c1, mask,
                                                                  **kw))
-        assert n_graphed == n_eager and n_eager["eta_ftran"] > 0 and n_eager["eta_btran"] > 0
+        assert n_graphed == n_eager and n_eager["eta_ftran"] > 0
+        # A steepest-edge pivot's BTRANs are one pair: no BTRAN of one vector.
+        assert n_eager["eta_btran_pair"] == n_eager["eta_ftran"] and n_eager["eta_btran"] == 0
         _state_bits_equal(graphed, eager)
     assert len(set(entries)) == 3
     assert cache.captured(lu.lu_run_chunk, "eta0") == {None: 1}

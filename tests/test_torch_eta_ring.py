@@ -12,16 +12,22 @@ CPU, against the JAX package's ``_apply_etas_ftran``/``_apply_etas_btran``
   all K slots) gives the bits of the plain loop over the live slots, as
   the CPU route of ``simplex.lu`` runs it; within 1e-12 of the JAX
   package's in f64 relative to max|x'| (1e-5 in f32: XLA may contract
-  x - f w into one FMA).
+  x - f w into one FMA).  ``ftran_chain``, the kernel's gather, chain
+  over the live rows and pass in torch, gives the plain loop's bits at
+  every fill, with repeated rows, a zero pivot and a ring past the
+  kernel's chain group.
 * ``eta_btran`` on CPU tensors gives the matmul loop's bits; the ordered
-  twin ``eta_btran_plain(..., order="kernel")`` (the summation order of
-  the kernels' block, whose bits the kernel gives on a card) is within
+  twin ``eta_btran_plain(..., order="kernel")`` (the kernel's summation
+  order: tiles of 256 elements outside the live rows, then the live rows'
+  terms in the chain, whose bits the kernel gives on a card) is within
   1e-12 (f64) and 1e-5 (f32) relative to max|y'| of the matmul loop and of
-  the JAX package: only the dot's summation order differs.
+  the JAX package: only the dot's summation order differs.  Its tile sums
+  add every product once.  The two-vector ``eta_btran_pair`` (plain: two
+  calls) equals two single calls.
 * A zero pivot w_k[r_k] gives the plain loop's inf and NaN in both passes.
-* The CPU route of ``lu_ftran``/``lu_btran`` takes the plain loops and
-  never builds the CUDA library; the wrapper refuses what the kernels do
-  not take before it builds anything.
+* The CPU route of ``lu_ftran``/``lu_btran`` and of the pair takes the
+  plain loops and never builds the CUDA library; the wrapper refuses what
+  the kernels do not take before it builds anything.
 * On the kernel route (``eta_ring.launches_kernel`` true on the CPU, the
   twins standing in for the kernels' launches), an LU chunk's graph key
   holds no ring fill: chunks entering with 0, 6, 12 and 18 etas replay one
@@ -78,6 +84,34 @@ def _bits(a, b) -> bool:
                                               b.reshape(-1).view(torch.uint8))
 
 
+def ftran_chain(eta_vals, eta_rows, eta_count, x, steps=None):
+    """``eta_ftran_plain`` as the kernel computes it (csrc/eta_ring.cu):
+    gather the rows r_j, u_j = x[r_j] and G[k, j] = w_k[r_j]; run the chain
+    over the live slots alone (f_k = u_k / G[k, k], then every later u_j <-
+    u_j - f_k G[k, j], or f_k where r_j = r_k); then the pass, each element
+    x_i <- x_i - f_k w_k[i], or f_k where i = r_k, in slot order.  The same
+    operations in the same order at every element, so the same bits."""
+    steps = eta_vals.shape[0] if steps is None else steps
+    if steps == 0:
+        return x
+    live = torch.arange(steps) < eta_count
+    rows = eta_rows[:steps].to(torch.int64)
+    G = eta_vals[:steps].index_select(1, rows)
+    u = x.index_select(0, rows)
+    later = torch.arange(steps)
+    factors = []
+    for k in range(steps):
+        f = u[k] / G[k, k]
+        chained = torch.where(rows == rows[k], f, u - f * G[k])
+        u = torch.where(live[k] & (later > k), chained, u)
+        factors.append(f)
+    for k in range(steps):
+        new = x - factors[k] * eta_vals[k]
+        new.index_copy_(0, rows[k : k + 1], factors[k].reshape(1))
+        x = torch.where(live[k], new, x)
+    return x
+
+
 @pytest.mark.parametrize("fill", FILLS)
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("M", SIZES)
@@ -93,6 +127,18 @@ def test_ftran_matches_the_plain_loop_and_jax(M, dtype, fill):
     assert _rel(got, want) <= TOL[dtype]
     if fill == 0:
         assert _bits(got, x)
+
+
+@pytest.mark.parametrize("fill", FILLS)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M", SIZES)
+def test_ftran_chain_form_gives_the_plain_loops_bits(M, dtype, fill):
+    """The kernel's FTRAN in torch (gather, chain over the live rows, pass)
+    against the plain loop, over the live slots and over all K."""
+    vals, rows, count, x = _torch(ring(M, dtype, fill, seed=5))
+    want = eta_ring.eta_ftran_plain(vals, rows, count, x)
+    assert _bits(ftran_chain(vals, rows, count, x), want)
+    assert _bits(ftran_chain(vals, rows, count, x, min(fill, K)), want)
 
 
 @pytest.mark.parametrize("fill", FILLS)
@@ -125,6 +171,7 @@ def test_repeated_pivot_rows(M, dtype):
     assert len(set(arrays[1][:37].tolist())) <= 3
     ftran = eta_ring.eta_ftran(vals, rows, count, x)
     assert _bits(ftran, eta_ring.eta_ftran_plain(vals, rows, count, x, 37))
+    assert _bits(ftran_chain(vals, rows, count, x), ftran)
     btran = eta_ring.eta_btran_plain(vals, rows, count, x, order="kernel")
     assert _rel(btran, eta_ring.eta_btran_plain(vals, rows, count, x, 37)) <= TOL[dtype]
     jax_args = _jax(arrays)
@@ -140,6 +187,9 @@ def test_a_zero_pivot_gives_the_plain_loops_inf_and_nan(dtype):
     ftran = eta_ring.eta_ftran(vals, rows, count, x)
     assert not torch.isfinite(ftran).all()
     assert _bits(ftran, eta_ring.eta_ftran_plain(vals, rows, count, x, 9))
+    chain = ftran_chain(vals, rows, count, x)
+    keep = ~torch.isnan(ftran)
+    assert torch.equal(torch.isnan(chain), ~keep) and _bits(chain[keep], ftran[keep])
     btran = eta_ring.eta_btran_plain(vals, rows, count, x, order="kernel")
     loop = eta_ring.eta_btran_plain(vals, rows, count, x, 9)
     assert not torch.isfinite(btran).all()
@@ -149,12 +199,50 @@ def test_a_zero_pivot_gives_the_plain_loops_inf_and_nan(dtype):
     assert _rel(btran[finite], loop[finite]) <= TOL[dtype]
 
 
-@pytest.mark.parametrize("M", [1, 31, 1024, 1025, 2049])
-def test_block_dot_sums_every_product(M):
-    """The kernels' order sums each product once: exact on integers."""
+@pytest.mark.parametrize("M", [1, 31, 256, 257, 2049])
+def test_tile_sums_add_every_product(M):
+    """The kernel's BTRAN order (tiles, lanes, the lanes' tree, the tiles
+    in order) sums each product once: exact on integers."""
     rng = np.random.default_rng(M)
-    y, w = (torch.as_tensor(rng.integers(-8, 9, M).astype(np.float64)) for _ in range(2))
-    assert float(eta_ring.block_dot(y, w)) == float((y * w).sum())
+    prods = torch.as_tensor(rng.integers(-8, 9, (3, M)).astype(np.float64))
+    assert torch.equal(eta_ring._tile_sums(prods), prods.sum(1))
+
+
+@pytest.mark.parametrize("fill", FILLS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_btran_pair_is_two_single_calls(dtype, fill):
+    """Two vectors through one ring, each with its own count (rho's with
+    one slot more, as the LU pivot calls it): the pair's plain version is
+    two calls of the ordered twin, its CPU route two matmul loops."""
+    vals, rows, count, y = _torch(ring(128, dtype, fill, seed=6))
+    w = torch.as_tensor(np.random.default_rng(fill).standard_normal(128).astype(dtype))
+    count_b = torch.clamp_min(count - 1, 0)
+    for order in ("kernel", "matmul"):
+        pair = eta_ring.eta_btran_pair_plain(vals, rows, count, y, count_b, w, order=order)
+        assert _bits(pair[0], eta_ring.eta_btran_plain(vals, rows, count, y, order=order))
+        assert _bits(pair[1], eta_ring.eta_btran_plain(vals, rows, count_b, w, order=order))
+    got = eta_ring.eta_btran_pair(vals, rows, count, y, count_b, w, min(fill, K),
+                                  min(max(fill - 1, 0), K))
+    assert _bits(got[0], eta_ring.eta_btran_plain(vals, rows, count, y))
+    assert _bits(got[1], eta_ring.eta_btran_plain(vals, rows, count_b, w))
+
+
+@pytest.mark.parametrize("repeat_rows", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_a_ring_past_the_chain_group(dtype, repeat_rows):
+    """K = 150 slots, past the kernels' chain group of 64 (their chain then
+    reads the ring from L2): the chain form gives the plain loop's bits, the
+    ordered twin stays within the tolerance of the matmul loop and of the
+    JAX package."""
+    K_large = 150
+    assert K_large > eta_ring.CHAIN_SLOTS
+    arrays = eta_ring_case(64, K_large, dtype, 140, seed=4, repeat_rows=repeat_rows)
+    vals, rows, count, x = _torch(arrays)
+    assert _bits(ftran_chain(vals, rows, count, x),
+                 eta_ring.eta_ftran_plain(vals, rows, count, x))
+    got = eta_ring.eta_btran_plain(vals, rows, count, x, order="kernel")
+    assert _rel(got, eta_ring.eta_btran_plain(vals, rows, count, x)) <= TOL[dtype]
+    assert _rel(got, _jax_btran(*_jax(arrays))) <= TOL[dtype]
 
 
 def test_cpu_route_takes_the_plain_loops_without_the_library(monkeypatch):
@@ -182,6 +270,9 @@ def test_cpu_route_takes_the_plain_loops_without_the_library(monkeypatch):
     assert _bits(eta_ring.eta_ftran(vals, rows, count, x, 7),
                  eta_ring.eta_ftran_plain(vals, rows, count, x, 7))
     assert _bits(eta_ring.eta_btran(vals, rows, count, x, 7), y)
+    pair = eta_ring.eta_btran_pair(vals, rows, count, x, count, base, 7, 7)
+    assert _bits(pair[0], y)
+    assert _bits(pair[1], eta_ring.eta_btran_plain(vals, rows, count, base, 7))
     assert eta_ring._LIB is None and eta_ring.LAUNCHES == launches
 
 
@@ -203,8 +294,21 @@ def test_the_wrapper_refuses_what_the_kernels_do_not_take(monkeypatch, change, m
         args[name] = fn(args[name])
     for kind in ("ftran", "btran"):
         with pytest.raises((TypeError, ValueError), match=match):
-            eta_ring._launch(kind, args["eta_vals"], args["eta_rows"], args["eta_count"],
-                             args["x"])
+            eta_ring._launch(kind, args["eta_vals"], args["eta_rows"],
+                             ((args["eta_count"], args["x"]),))
+    # The pair: either vector may be the one the kernel does not take.
+    with pytest.raises((TypeError, ValueError), match=match):
+        eta_ring._launch("btran", args["eta_vals"], args["eta_rows"],
+                         ((count, x), (args["eta_count"], args["x"])))
+
+
+def test_a_launch_refuses_a_wrong_number_of_vectors(monkeypatch):
+    monkeypatch.setattr(_build, "build", lambda: pytest.fail("built the library"))
+    vals, rows, count, x = _torch(ring(30, np.float64, 4))
+    for kind, passes in (("ftran", ((count, x), (count, x))),
+                         ("btran", ((count, x),) * 3), ("btran", ())):
+        with pytest.raises(ValueError, match="vectors"):
+            eta_ring._launch(kind, vals, rows, passes)
 
 
 def test_another_device_or_order_raises():
@@ -216,11 +320,12 @@ def test_another_device_or_order_raises():
         eta_ring.eta_btran_plain(vals, rows, count, x, order="tree")
 
 
-def _twins(kind, eta_vals, eta_rows, eta_count, x):
+def _twins(kind, eta_vals, eta_rows, passes):
     """The kernels' plain versions, their bits, in place of a launch."""
     if kind == "ftran":
-        return eta_ring.eta_ftran_plain(eta_vals, eta_rows, eta_count, x)
-    return eta_ring.eta_btran_plain(eta_vals, eta_rows, eta_count, x, order="kernel")
+        return tuple(eta_ring.eta_ftran_plain(eta_vals, eta_rows, c, x) for c, x in passes)
+    return tuple(eta_ring.eta_btran_plain(eta_vals, eta_rows, c, y, order="kernel")
+                 for c, y in passes)
 
 
 @pytest.fixture
