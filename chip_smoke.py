@@ -29,9 +29,12 @@ Takes no arguments and needs no network.  Phases, one line each (or more):
                    relative error, 3xTF32 and the outer product within it;
                    each kernel against its plain version on the card at
                    M = 64, 256, 512 (1e-6 * max|plain|, the outer product
-                   bitwise), two launches bitwise equal; CUDA-graph times
-                   beside the plain version's, the bound, a library call
-                   and the empty kernel's (floor_ms);
+                   bitwise, also at 1,920, 4,096 and on edge values), two
+                   launches bitwise equal; CUDA-graph times beside the
+                   plain version's, the bound, a library call and the
+                   empty kernel's (floor_ms); the outer product's times
+                   warm and L2-cold at 256, 1,920 and 4,096 beside
+                   torch.outer's, the bound and its shares;
   5. batch/kernel  both batched-pivot kernels against
                    batched_pivot_chunk_reference from the same state, one
                    25-pivot chunk with and without stop_at_zero, at the JAX
@@ -573,6 +576,14 @@ def phase_kernel(torch, np, device):
 
 
 PROBE_SIZES = (64, 256, 512)
+# The outer product is also held at main/real's basis dimension (the shape
+# of a rank-1 update of its (1920, 1920) inverse) and where C (67.1 MB)
+# outgrows L2, and timed at the probe's shape and at those two.
+OUTER_SIZES = (1920, 4096)
+OUTER_TIMED = (256, 1920, 4096)
+# The edge values go through the outer kernel at the smallest grid and at
+# the largest, four rows a thread over four chunks of a row.
+OUTER_EDGE_SIZES = (64, 4096)
 
 
 def phase_probe(torch, device):
@@ -583,13 +594,19 @@ def phase_probe(torch, device):
     (probe_dot_reference): the two products within 1e-6 * max|plain| (the
     kernel sums the same TF32 terms in f32, the plain version in f64: f32
     summation order over K <= 512), the outer product bitwise (the same
-    f32 multiplies); and two launches on the same inputs bitwise equal.
+    f32 multiplies, also at OUTER_SIZES and on the edge values of
+    probe.EDGE_BITS at OUTER_EDGE_SIZES, NaN by position); and two launches on the same inputs
+    bitwise equal.
     At M=256 each kernel's time beside its plain version's on the card,
     its bound, a library call (torch.matmul with TF32 allowed for tf32,
     torch.matmul in full f32 for tf32x3: the same product by another
     method, torch.outer for outer) and floor_ms: the empty kernel of the
     same source, timed the same way, the part of every time that no design
-    of a kernel's body removes."""
+    of a kernel's body removes.  At each of OUTER_TIMED the outer kernel's
+    time warm and L2-cold (each call after a 128 MB read) beside
+    torch.outer's in the same state, the bound and its shares, and
+    floor_ms (at 1,920 C's 14.7 MB stays in L2 between warm calls, so the
+    warm share may pass 1: the cold one is the yardstick)."""
     from relp_tpu_torch.tools import probe_dot_precision as probe
 
     for kind in probe.KINDS:
@@ -600,9 +617,9 @@ def phase_probe(torch, device):
     _check(rel["tf32x3"] <= 1e-6 and rel["outer"] <= 1e-6,
            f"probe errors {rel}")
     vs_plain, repeat = {}, {kind: True for kind in probe.KINDS}
-    for M in PROBE_SIZES:
+    for M in PROBE_SIZES + OUTER_SIZES:
         a, b = probe.inputs(device, M)
-        for kind in probe.KINDS:
+        for kind in probe.KINDS if M in PROBE_SIZES else ("outer",):
             first, second = probe.probe_dot(kind, a, b), probe.probe_dot(kind, a, b)
             plain = probe.probe_dot_reference(kind, a, b)
             torch.cuda.synchronize()
@@ -616,6 +633,17 @@ def phase_probe(torch, device):
             repeat[kind] &= bitwise
             _line("probe", kind=kind, shape=f"{M}x{M}", vs_plain=f"{err / scale:.3e}",
                   tol="0" if kind == "outer" else "1e-6*max|plain|", repeat_bitwise=bitwise)
+    for M in OUTER_EDGE_SIZES:
+        a, b = probe.edge_inputs(device, M)
+        first, second = probe.probe_dot("outer", a, b), probe.probe_dot("outer", a, b)
+        plain = probe.probe_dot_reference("outer", a, b).to(torch.float32)
+        bits, again = probe.same_bits(first, plain), probe.same_bits(second, first)
+        _check(bits and again,
+               f"probe outer on the edge values at M={M}: bitwise={bits} repeat={again}")
+        repeat["outer"] &= again
+        _line("probe", kind="outer", shape=f"{M}x{M}", inputs="edge",
+              values=len(probe.EDGE_BITS), nan=int(torch.isnan(plain).sum()), bitwise=bits,
+              repeat_bitwise=again)
     a, b = probe.inputs(device)
     M = a.shape[0]
     library = {
@@ -646,6 +674,23 @@ def phase_probe(torch, device):
               launches=launches[kind], kernel_ms=f"{ms:.5f}", plain_ms=f"{plain_ms:.5f}",
               library_ms=f"{library_ms:.5f}", bound_ms=f"{bounds[kind][0]:.5f}",
               bound_by=bounds[kind][1], floor_ms=f"{floor_ms:.5f}")
+    shapes = {}
+    for M in OUTER_TIMED:
+        a, b = probe.inputs(device, M)
+        t = {}
+        for state, flush in (("warm", None), ("cold", _flush(torch))):
+            t[f"{state}_ms"] = _graph_ms(torch, lambda: probe.probe_dot("outer", a, b),
+                                         flush=flush)
+            t[f"library_{state}_ms"] = _graph_ms(
+                torch, lambda: torch.outer(a[:, 0], b[0, :]), flush=flush)
+        bound_ms, bound_by = _bound((2 * M + M * M) * 4, 1.0 * M * M, F32_FLOPS)
+        shapes[M] = dict(t, bound_ms=bound_ms, bound_by=bound_by)
+        _line("probe", kind="outer", shape=f"{M}x{M}", **_CARD,
+              **{k: f"{v:.5f}" for k, v in t.items()}, bound_ms=f"{bound_ms:.5f}",
+              bound_by=bound_by, share_warm=f"{bound_ms / t['warm_ms']:.3f}",
+              share_cold=f"{bound_ms / t['cold_ms']:.3f}", floor_ms=f"{floor_ms:.5f}")
+    out["outer"]["cold_ms"] = shapes[256]["cold_ms"]
+    out["outer"]["at_shapes"] = {f"{M}x{M}": v for M, v in shapes.items()}
     return out
 
 

@@ -14,9 +14,18 @@
 //     one accumulator and a_hi b_hi in another, added once in f32 at the
 //     end: about f32 accuracy (a_lo b_lo dropped);
 //   * probe_outer_kernel (outer) <- kernel_outer (:74), the broadcast outer
-//     product A[:, 0] B[0, :]: plain f32 multiplies, no tensor core.
+//     product A[:, 0] B[0, :]: plain f32 multiplies, no tensor core, with
+//     subnormals flushed as XLA's CPU multiply flushes them.
 //
-// What bounds the products: at M = 256 one moves 768 KB for 34 MFLOP (101
+// What bounds the outer product: its M^2 f32 stores (M = 4,096: 67.1 MB,
+// more than L2, 20.0 us at 3.35 TB/s), and below M of about 1,000 the
+// launch and one round trip for A[i, 0] and B[0, j].  Its design: each
+// thread keeps its float4 of B's row in registers, loads A[i, 0] of four
+// of its rows at once, a batch ahead, and writes C with 16-byte streaming
+// stores; the grid walks C's rows together, in several waves of blocks at
+// large M, one row a thread at small M; no division.
+//
+// What bounds the two matrix products: at M = 256 one moves 768 KB for 34 MFLOP (101
 // for 3xTF32), 0.23 us at 3.35 TB/s, below the cost of a launch: latency,
 // not work.  The design takes one round trip to L2 per CTA and chunk, not
 // one per 8-deep step:
@@ -48,6 +57,8 @@
 #include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cfloat>
 #include <cstdint>
 
 namespace cg = cooperative_groups;
@@ -296,13 +307,86 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// C[i, j] = A[i, 0] B[0, j].
-__global__ void probe_outer_kernel(const float* __restrict__ A,
-                                   const float* __restrict__ B, float* C, int M) {
-  const size_t e = size_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= size_t(M) * M) return;
-  const int i = int(e / M), j = int(e % M);
-  C[e] = __fmul_rn(A[size_t(i) * M], B[j]);
+// The outer product's arithmetic is XLA's f32 multiply on the CPU, where
+// the JAX probe's kernel_outer runs: a subnormal input reads as zero
+// (daz), and a product below 2^-126 after rounding with an unbounded
+// exponent becomes zero (ftz_mul), signs kept.
+__device__ __forceinline__ float daz(float x) {
+  return fabsf(x) < FLT_MIN ? copysignf(0.f, x) : x;
+}
+
+// fl(a b), flushed; a_scaled = a 2^64 (exact, or inf where a b is far from
+// tiny).  fl(a_scaled b) is the product rounded with an unbounded exponent,
+// scaled by 2^64, wherever a b could be tiny.
+__device__ __forceinline__ float ftz_mul(float a, float a_scaled, float b) {
+  const float p = __fmul_rn(a, b);
+  return fabsf(__fmul_rn(a_scaled, b)) < 0x1p-62f ? copysignf(0.f, p) : p;
+}
+
+__device__ __forceinline__ float4 outer4(float a, float a_scaled, float4 b) {
+  return make_float4(ftz_mul(a, a_scaled, b.x), ftz_mul(a, a_scaled, b.y),
+                     ftz_mul(a, a_scaled, b.z), ftz_mul(a, a_scaled, b.w));
+}
+
+constexpr int kOuterThreads = 256;  // most threads of a block; one float4 of B's row each
+constexpr int kOuterRows = 4;       // rows whose A[i, 0] a thread loads at once
+constexpr int kOuterBlocksPerSm = 32;
+
+// C[i, j] = A[i, 0] B[0, j] (flushed as above) for row-major (M, M) A, B,
+// C, V = M / 4.  A row of C is V float4s, cut into chunks of W = min(V,
+// 256); a block of (W, R) threads runs R rows at once (R = 256 / W),
+// thread (x, y) on float4 x of the chunk in row y.  The grid is (chunks,
+// strips), and the rows are grid-strided: the grid's stores move through C
+// together, as a fill's do.  Each thread loads its float4 of B's row once
+// and keeps it in registers, loads A[i, 0] of kOuterRows of its rows at
+// once, a batch ahead of the rows it stores (the first batch in flight
+// with B's load; a warp's threads on one row share each load), and stores
+// each row's float4 with a streaming store: no shared memory, no barrier,
+// no division.  Where the grid covers C at one row a thread (small M) a
+// thread loads and stores its one row alone, 0.08 us sooner on an H100 at
+// M = 256 than the batched loop (PERF.md), which fills C at larger M.
+__global__ void __launch_bounds__(kOuterThreads)
+    probe_outer_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                       float* __restrict__ C, int M, int V) {
+  const int R = blockDim.y;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;  // this thread's float4 of a row
+  const bool active = c < V;
+  float4 b = active ? reinterpret_cast<const float4*>(B)[c] : make_float4(0.f, 0.f, 0.f, 0.f);
+  const int step = int(gridDim.y) * R;  // rows from one of a thread's rows to its next
+  int r0 = blockIdx.y * R + threadIdx.y;
+  if (step >= M) {  // at most one row a thread
+    const float a0 = active && r0 < M ? A[size_t(r0) * M] : 0.f;
+    b = make_float4(daz(b.x), daz(b.y), daz(b.z), daz(b.w));
+    if (active && r0 < M) {
+      const float a = daz(a0);
+      __stcs(reinterpret_cast<float4*>(C) + size_t(r0) * V + c,
+             outer4(a, __fmul_rn(a, 0x1p64f), b));
+    }
+    return;
+  }
+  const auto load = [&](float (&a)[kOuterRows], int first) {
+#pragma unroll
+    for (int j = 0; j < kOuterRows; ++j) {
+      const int r = first + j * step;
+      a[j] = active && r < M ? A[size_t(r) * M] : 0.f;
+    }
+  };
+  float a[kOuterRows], next[kOuterRows] = {};
+  load(a, r0);
+  b = make_float4(daz(b.x), daz(b.y), daz(b.z), daz(b.w));
+  for (; r0 < M; r0 += kOuterRows * step) {
+    if (r0 + kOuterRows * step < M) load(next, r0 + kOuterRows * step);
+#pragma unroll
+    for (int j = 0; j < kOuterRows; ++j) {
+      const int r = r0 + j * step;
+      const float aj = daz(a[j]);
+      if (active && r < M) {
+        __stcs(reinterpret_cast<float4*>(C) + size_t(r) * V + c,
+               outer4(aj, __fmul_rn(aj, 0x1p64f), b));
+      }
+      a[j] = next[j];
+    }
+  }
 }
 
 // Does nothing: its time is the floor under every kernel's.
@@ -361,6 +445,24 @@ cudaError_t launch_mma(const float* a, const float* b, float* c, int M, int spli
   return cudaLaunchKernelEx(&cfg, probe_mma_kernel<kSplit>, map_a, map_b, c, M, split);
 }
 
+// The outer product's launch: kOuterRows rows a thread where that still
+// leaves a block for every SM, else fewer; at most kOuterBlocksPerSm blocks
+// an SM (4 waves of 8 at M = 4,096, which keeps the card's stores busy to
+// the end where one wave leaves it waiting on its slowest blocks).  The SM
+// count is the current card's, read at each launch.
+cudaError_t launch_outer(const float* a, const float* b, float* c, int M, cudaStream_t s) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int V = M / 4, W = std::min(V, kOuterThreads), R = kOuterThreads / W;
+  const int chunks = (V + W - 1) / W, units = (M + R - 1) / R;
+  const int strips = std::min({std::max(1, sms * kOuterBlocksPerSm / chunks), units,
+                               std::max(sms / chunks, (units + kOuterRows - 1) / kOuterRows)});
+  probe_outer_kernel<<<dim3(chunks, strips), dim3(W, R), 0, s>>>(a, b, c, M, V);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // kind 0 tf32, 1 tf32x3, 2 outer; (M, M) row-major f32, M a positive
@@ -388,9 +490,7 @@ extern "C" int relp_probe_dot_split(int kind, const void* A, const void* B, void
   } else if (kind == 1) {
     err = launch_mma<true>(a, b, c, M, split, s);
   } else {
-    const int threads = 256;
-    const int grid = int((size_t(M) * M + threads - 1) / threads);
-    probe_outer_kernel<<<grid, threads, 0, s>>>(a, b, c, M);
+    err = launch_outer(a, b, c, M, s);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -13,7 +13,8 @@ matrices (seed 0) as
 * ``tf32x3``: three TF32 products of the split inputs, the counterpart of
   ``Precision.HIGHEST``;
 * ``outer``: the outer product of the first column and the first row with
-  plain f32 multiplies,
+  plain f32 multiplies, subnormals flushed as XLA's CPU multiply flushes
+  them (``outer_reference``),
 
 and the probe prints each one's largest error relative to the largest
 entry of the exact product (``exact_product``: f64 with numpy on the
@@ -42,6 +43,8 @@ KINDS = ("tf32", "tf32x3", "outer")
 # The kernels take (M, M) matrices with M a positive multiple of this: one
 # 64 x 64 output tile per warpgroup, K read in 64-wide slices.
 TILE = 64
+# The smallest normal f32.
+FLT_MIN = 2.0 ** -126
 # Launches of each kernel since the last reset; the plain version does not
 # count.
 LAUNCHES: Dict[str, int] = {kind: 0 for kind in KINDS}
@@ -78,14 +81,31 @@ def _split(x: torch.Tensor):
     return hi, round_tf32(x - hi)
 
 
+def _flush_inputs(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal values read as zero, signs kept."""
+    return torch.where(x.abs() < FLT_MIN, x * 0, x)
+
+
+def outer_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The f32 products a[i, 0] * b[0, j] as XLA's f32 multiply on the CPU
+    (where the JAX probe's ``kernel_outer`` runs) computes them: subnormal
+    inputs read as zero, and a product below 2^-126 after rounding with an
+    unbounded exponent, that is one whose exact value is below 2^-126 -
+    2^-151, becomes zero; signs kept."""
+    col, row = _flush_inputs(a[:, :1]), _flush_inputs(b[:1, :])
+    out = col * row
+    tiny = (col.double() * row.double()).abs() < FLT_MIN - 2.0 ** -151  # exact in f64
+    return torch.where(tiny, out * 0, out)
+
+
 def probe_dot_reference(kind: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """The plain version, on the inputs' device, as an f64 matrix: what the
     ``kind`` kernel computes, summed exactly (f64) where the kernel sums in
     f32.  ``tf32``: round_tf32(a) @ round_tf32(b); ``tf32x3``: lo_a hi_b +
     hi_a lo_b + hi_a hi_b of the split inputs (lo lo dropped, as the kernel
-    drops it); ``outer``: the f32 products a[i, 0] * b[0, j], bit for bit."""
+    drops it); ``outer``: ``outer_reference``, bit for bit."""
     if kind == "outer":
-        return (a[:, :1] * b[:1, :]).double()
+        return outer_reference(a, b).double()
     if kind == "tf32":
         return round_tf32(a).double() @ round_tf32(b).double()
     (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
@@ -161,6 +181,40 @@ def inputs(device, M: int = 256, seed: int = 0):
     a = rng.standard_normal((M, M)).astype(np.float32)
     b = rng.standard_normal((M, M)).astype(np.float32)
     return torch.as_tensor(a, device=device), torch.as_tensor(b, device=device)
+
+
+# f32 bit patterns that the outer product's edge case puts at the head of
+# A[:, 0] and of B[0, :], so that every pair of them is multiplied: signed
+# zeros, subnormals, the smallest normals, infinities, NaNs, the largest
+# finite value, factors whose products are subnormal (2^-64 2^-63) or
+# overflow (2^64 2^64), and 1.5 2^-126 and 2^-126 (1 + 2^-23) beside 2/3
+# rounded down (0x3F2AAAAA) and 1 - 2^-23: the products 2^-126 - 2^-150
+# (flushed) and 2^-126 - 2^-172 (rounded up to 2^-126), one on each side
+# of the 2^-126 - 2^-151 that decides.
+EDGE_BITS = (
+    0x00000000, 0x80000000, 0x00000001, 0x80000001, 0x00400000, 0x007FFFFF, 0x807FFFFF,
+    0x00800000, 0x80800000, 0x00800001, 0x00C00000, 0x7F800000, 0xFF800000, 0x7FC00000,
+    0xFFC00001, 0x7F7FFFFF, 0x1F800000, 0x20000000, 0x5F800000, 0x3F2AAAAA, 0x3F7FFFFE,
+    0x3F800000, 0xBF800000,
+)
+
+
+def edge_inputs(device, M: int = 64, seed: int = 0):
+    """The probe's inputs with ``EDGE_BITS`` at the head of A[:, 0] and of
+    B[0, :]."""
+    a, b = inputs("cpu", M, seed)
+    edge = torch.tensor(np.array(EDGE_BITS, dtype=np.uint32).view(np.int32)).view(torch.float32)
+    a[: len(edge), 0] = edge
+    b[0, : len(edge)] = edge
+    return a.to(device), b.to(device)
+
+
+def same_bits(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Whether two f32 tensors hold the same bits, NaN compared by position
+    (its payload and sign aside)."""
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)
+                and torch.equal(got.view(torch.int32)[~nan], want.view(torch.int32)[~nan]))
 
 
 def relative_error(out: torch.Tensor, exact: torch.Tensor) -> float:

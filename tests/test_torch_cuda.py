@@ -678,13 +678,18 @@ def test_probe_kernels_precision(cuda_device):
     assert all(probe.LAUNCHES[k] == before[k] + 1 for k in probe.KINDS)
 
 
-@pytest.mark.parametrize("M", [64, 256, 512])
-@pytest.mark.parametrize("kind", ["tf32", "tf32x3", "outer"])
+@pytest.mark.parametrize("kind,M", [(kind, M) for kind in ("tf32", "tf32x3", "outer")
+                                     for M in (64, 256, 512)]
+                         + [("outer", M) for M in (320, 1920, 4096, 8192)])
 def test_probe_kernel_matches_plain(cuda_device, kind, M):
     """Each probe kernel against its plain version on the card: the two
     products within 1e-6 * max|plain| (the same TF32 terms, summed in f32
     by the kernel and in f64 by the plain version), the outer product
-    bitwise; two launches give the same bits and count one each."""
+    bitwise, also at M = 320 (80 float4s a row: blocks of 80 x 3 threads,
+    the last row unit ragged), 1,920 (two chunks of a row, the second
+    ragged; four rows a thread), 4,096 (C larger than L2) and 8,192 (the
+    grid passes over C four times, each batch of A[i, 0] loaded ahead); two
+    launches give the same bits and count one each."""
     from relp_tpu_torch.tools import probe_dot_precision as probe
 
     a, b = probe.inputs(cuda_device, M, seed=3)
@@ -697,6 +702,25 @@ def test_probe_kernel_matches_plain(cuda_device, kind, M):
     assert plain.device == a.device
     err = float((first.double() - plain).abs().max())
     assert err <= (0.0 if kind == "outer" else 1e-6 * float(plain.abs().max()))
+
+
+@pytest.mark.parametrize("M", [64, 4096])
+def test_probe_outer_on_edge_values(cuda_device, M):
+    """The outer kernel on every pair of EDGE_BITS (signed zeros,
+    subnormals, infinities, NaNs, products that underflow, overflow or fall
+    beside the flush's threshold): the plain version's f32 bits on the
+    card and on the CPU, NaN in the same places; two launches the same.  At
+    M = 64 a thread stores its one row alone; at 4,096 it runs the batched
+    loop, four rows, and a row has four chunks."""
+    from relp_tpu_torch.tools import probe_dot_precision as probe
+
+    a, b = probe.edge_inputs(cuda_device, M)
+    first, second = probe.probe_dot("outer", a, b), probe.probe_dot("outer", a, b)
+    plain = probe.probe_dot_reference("outer", a, b).to(torch.float32)
+    torch.cuda.synchronize()
+    assert probe.same_bits(first, plain) and probe.same_bits(second, first)
+    assert probe.same_bits(first.cpu(), probe.probe_dot_reference(
+        "outer", a.cpu(), b.cpu()).to(torch.float32))
 
 
 # Families of testing.step_case for the batch driver's captured steps: the

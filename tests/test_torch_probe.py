@@ -12,7 +12,10 @@
 * each plain version against the JAX probe's Pallas kernel in interpret
   mode (loaded by path, nothing in the JAX package edited), at M = 64 and
   256 on numpy inputs from a seed: ``outer`` bitwise equal to
-  ``kernel_outer``; ``tf32x3`` within 1e-6 * max|plain| of ``kernel_hi``;
+  ``kernel_outer``, also at M = 1,920 and on edge values (signed zeros,
+  subnormals, infinities, NaN by position: XLA's CPU multiply reads
+  subnormal inputs as zero and flushes products tiny after rounding, and
+  so does the plain version); ``tf32x3`` within 1e-6 * max|plain| of ``kernel_hi``;
   ``tf32`` within 1e-6 * max|plain| of ``kernel`` on inputs rounded to
   TF32 in numpy (on the CPU JAX's default-precision dot is full f32).
   The tolerance is f32 summation order over K <= 256 (the JAX kernels sum
@@ -110,8 +113,8 @@ def _pallas(fn, a, b):
     return np.asarray(out)
 
 
-@pytest.mark.parametrize("M", [64, 256])
-@pytest.mark.parametrize("kind", probe.KINDS)
+@pytest.mark.parametrize("kind,M", [(kind, M) for kind in probe.KINDS for M in (64, 256)]
+                         + [("outer", 1920)])
 def test_plain_version_matches_jax_kernel(jax_probe, kind, M):
     a, b = _inputs(M)
     plain = probe.probe_dot_reference(kind, torch.from_numpy(a), torch.from_numpy(b))
@@ -128,6 +131,47 @@ def test_plain_version_matches_jax_kernel(jax_probe, kind, M):
         jax_out = _pallas(jax_probe.kernel_hi, a, b)
     scale = np.abs(plain).max()
     assert np.abs(jax_out.astype(np.float64) - plain).max() <= 1e-6 * scale
+
+
+def test_outer_plain_matches_jax_kernel_on_edge_values(jax_probe):
+    """Every pair of ``EDGE_BITS`` (signed zeros, subnormals, infinities,
+    NaNs, products that underflow, overflow or fall beside the flush's
+    threshold) multiplied by the plain version and by ``kernel_outer``:
+    the same f32 bits, NaN in the same places."""
+    a, b = probe.edge_inputs("cpu")
+    plain = probe.probe_dot_reference("outer", a, b).to(torch.float32)
+    jax_out = torch.from_numpy(_pallas(jax_probe.kernel_outer, a.numpy(), b.numpy()).copy())
+    assert probe.same_bits(plain, jax_out) and bool(torch.isnan(jax_out).any())
+    n = len(probe.EDGE_BITS)
+    head = plain[:n, :n]
+    assert bool((head == 0).any() & torch.isinf(head).any())
+    assert not bool(((head != 0) & (head.abs() < probe.FLT_MIN)).any())  # nothing subnormal
+    assert bool((head.view(torch.int32) == -2**31).any())  # a negative zero
+
+
+@pytest.mark.parametrize("a_bits,b_bits,want", [
+    (0x00000001, 0x7F7FFFFF, 0x00000000),  # a subnormal input reads as zero
+    (0x80000001, 0x3F800000, 0x80000000),  # ... its sign kept
+    (0x7F800000, 0x00000001, 0x7FC00000),  # inf times a subnormal is inf times zero
+    (0x1F800000, 0xA0000000, 0x80000000),  # 2^-64 (-2^-63): a subnormal product flushed
+    (0x00C00000, 0x3F2AAAAA, 0x00000000),  # 2^-126 - 2^-150: tiny after rounding
+    (0x00800001, 0x3F7FFFFE, 0x00800000),  # 2^-126 - 2^-172 rounds up to 2^-126
+    (0x5F800000, 0x5F800000, 0x7F800000),  # 2^64 2^64 overflows
+    (0x00800000, 0x3F800000, 0x00800000),  # the smallest normal stays
+])
+def test_outer_reference_flushes_as_xla(a_bits, b_bits, want):
+    """The plain outer product on single pairs, against the bits that
+    XLA's CPU multiply gives (NaN by its being NaN)."""
+    def f32(bits):
+        return np.array([bits], np.uint32).view(np.float32)[0]
+
+    a, b = np.zeros((64, 64), np.float32), np.zeros((64, 64), np.float32)
+    a[0, 0], b[0, 0] = f32(a_bits), f32(b_bits)
+    got = probe.outer_reference(torch.from_numpy(a), torch.from_numpy(b))[0, 0].numpy()
+    if np.isnan(f32(want)):
+        assert np.isnan(got)
+    else:
+        assert got.view(np.uint32) == want
 
 
 def test_plain_tf32_rounds():
@@ -173,6 +217,15 @@ _GOOD = torch.zeros((64, 64), dtype=torch.float32)
 def test_probe_dot_rejects_bad_arguments(kind, a, b, match):
     with pytest.raises(ValueError, match=match):
         probe.probe_dot(kind, a, b)
+
+
+def test_same_bits_compares_nan_by_position():
+    x = torch.tensor([1.0, -0.0, float("nan"), float("inf")])
+    y = x.clone()
+    y[2] = -float("nan")  # another NaN: the same by position
+    assert probe.same_bits(x, y)
+    assert not probe.same_bits(x, torch.tensor([1.0, 0.0, float("nan"), float("inf")]))
+    assert not probe.same_bits(x, torch.tensor([1.0, -0.0, 1.0, float("inf")]))
 
 
 def test_run_on_cpu_is_in_the_card_bands():
