@@ -1,0 +1,21 @@
+"""The host pipeline's share of a stream's window: the durations of the
+port's presolve, standardize, lower, place and reconstruct spans
+(relp_tpu_torch.utils.logging), clipped to the window's program calls, over
+the window.  Nothing is read where the program records no spans there, or
+where its ring lost spans of the window."""
+
+LAYER, UNIT, BETTER, SOURCE, MOVES = ("host pipeline", "%", "lower", "program_span", "lp_s")
+
+NAMES = ("presolve", "standardize", "lower", "place", "reconstruct")
+
+
+def read(record):
+    from relp_tpu_torch.utils import logging
+
+    window = getattr(logging, "window", None)
+    if window is None or not record.calls:
+        return None
+    spans = window(int(record.calls[0].t0 * 1e9), int(record.calls[-1].t1 * 1e9))
+    if not spans:
+        return None
+    return 100.0 * sum(s.end - s.start for s in spans if s.name in NAMES) / 1e9 / record.seconds

@@ -56,6 +56,7 @@ from relp_tpu_torch.data.elements import VariableType
 from relp_tpu_torch.data.general_form import Active, GeneralForm
 from relp_tpu_torch.data.solution import Solution
 from relp_tpu_torch.simplex.result import OptimizationResult, SolveStatus
+from relp_tpu_torch.utils.logging import traced
 
 
 @dataclass
@@ -221,6 +222,7 @@ def _branch_bounds(var, value: Fraction):
     return down, up
 
 
+@traced("bb.search")
 def solve_mip(
     general_form: GeneralForm,
     config: Optional[SolverConfig] = None,

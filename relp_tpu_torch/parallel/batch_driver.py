@@ -84,6 +84,7 @@ from relp_tpu_torch.simplex.kernels import PRICE_STEEPEST, noisy_f32_matmul
 from relp_tpu_torch.simplex.lowering import lower_provider
 from relp_tpu_torch.simplex.result import OptimizationResult, SolveStats, SolveStatus
 from relp_tpu_torch.simplex.state import OPTIMAL, RUNNING, SINGULAR
+from relp_tpu_torch.utils import logging as trace
 from relp_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("batch")
@@ -266,7 +267,21 @@ def solve_batch(
     over its "batch" axis when their count divides it (else every rank
     holds all of them) and each LP's columns over "col"; call it on every
     rank of the mesh, which all return the whole list.
+
+    The call is one ``batch`` span, which counts its LPs and their pivots.
     """
+    with trace.span("batch") as span:
+        results = _solve_batch(
+            providers, config, certify=certify, shared_structure=shared_structure,
+            mesh=mesh, warm_start_basis=warm_start_basis,
+        )
+        span.count(lps=len(results), pivots=sum(
+            r.stats.iterations + r.stats.dual_iterations for r in results))
+    return results
+
+
+def _solve_batch(providers, config, *, certify, shared_structure, mesh,
+                 warm_start_basis) -> List[OptimizationResult]:
     cfg = config or default_config()
     if certify is None:
         certify = cfg.certify
@@ -357,32 +372,20 @@ def solve_batch(
         all_reduce(t, op=dist.ReduceOp.MAX)
         return tuple(bool(v) for v in t.cpu().numpy() > 0)
 
-    _timing = _os.environ.get("RELP_TPU_BATCH_TIMING", "")
-
-    def _t(label, t_from):
-        if _timing:
-            print(f"  [batch-timing] {label}: {time.time() - t_from:.3f}s",
-                  flush=True)
-        return time.time()
-
     max_chunks = min(max(1, cfg.max_iterations // max(1, cfg.chunk_size)) + 2, 60)
 
     def run_phase(batch, c, stop_at_zero, mega=None):
-        t = time.time()
         if pricing == PRICE_STEEPEST:
             batch = batch._replace(gamma=_v_gamma(batch.Binv, A_scan, batch.in_basis))
         # No per-LP Bland/perturbation machinery here: LPs still RUNNING after
         # the cap fall back to the single-LP driver.
         hi = False
-        for _chunk_i in range(max_chunks):
+        for _ in range(max_chunks):
             batch, report = step(
                 batch, c, stop_at_zero, hi,
                 use_megakernel if mega is None else mega,
             )
             report = report.cpu().numpy()
-            t = _t(
-                f"phase(stop_at_zero={stop_at_zero}) chunk {_chunk_i} (hi={hi})", t,
-            )
             status = report[0].astype(np.int32)
             obj = report[1]
             running = status == RUNNING
@@ -479,7 +482,7 @@ def solve_batch(
                 wb = with_status(wb, np.where(bad & (st == RUNNING), SINGULAR, st))
         return wb, wb.iteration.cpu().numpy().astype(np.int64)
 
-    t0 = time.time()
+    t0 = time.perf_counter()
     dual_iters = np.zeros(len(problems), dtype=np.int64)
     warm_engaged = False
     if warm_start_basis is not None and cfg.dual_restart and mesh is None:
@@ -503,7 +506,6 @@ def solve_batch(
         # Phase 1 for all (LPs with complete slack bases end at once at zero).
         batch = run_phase(batch, c1, stop_at_zero=True)
         phase1_iters = batch.iteration.cpu().numpy().astype(np.int64)
-        _t("phase 1 total", t0)
 
         # Phase transition: real costs, reset status for feasible LPs.
         feasible = batch.obj.cpu().numpy() <= cfg.phase1_tol
@@ -514,11 +516,9 @@ def solve_batch(
     # Phase 2 + full-precision polish.  After an engaged warm restart the
     # phase is a near-optimal re-verification: it runs on the batched torch
     # path even when the kernels are enabled, as the JAX package rules.
-    _t2 = time.time()
     batch = run_phase(
         batch, c2, stop_at_zero=False, mega=use_megakernel and not warm_engaged,
     )
-    _t("phase 2 total", _t2)
     if mixed:
         status = batch.status.cpu().numpy()
         polish = np.where(status == OPTIMAL, RUNNING, status)
@@ -532,14 +532,12 @@ def solve_batch(
     # Final from-scratch refactorization: extraction never trusts a carried
     # inverse; the residual and the basis-exact xB gate send bad LPs to the
     # single-LP fallback.
-    _t3 = time.time()
     batch, final_residual = refactor(batch, c2)
     final_residual = final_residual.cpu().numpy()
     if graphed:  # the steps that read a stacked tableau in place go with it
         _steps(shard).release(A, A_scan)
-    _t("final refactor", _t3)
 
-    wall = time.time() - t0
+    wall = time.perf_counter() - t0
 
     # --- extraction ---
     results: List[OptimizationResult] = []
@@ -650,12 +648,12 @@ def solve_batch(
         )
         result.float_entries = entries  # type: ignore[attr-defined]
         if certify:
-            _tc = time.time()
-            certify_and_repair(
-                result, provider, structural_basis, cfg,
-                art_offset=problem.art_offset,
-            )
-            stats.certify_time_s += time.time() - _tc
+            with trace.timed("certify") as clock:
+                certify_and_repair(
+                    result, provider, structural_basis, cfg,
+                    art_offset=problem.art_offset,
+                )
+            stats.certify_time_s += clock.seconds
             if not result.stats.certified:
                 # Numerically troubled LPs go to the single-LP driver (with
                 # its f64 escalation) rather than ship uncertified.

@@ -78,6 +78,7 @@ from relp_tpu_torch.simplex.state import (
     UNBOUNDED,
     state_to_numpy,
 )
+from relp_tpu_torch.utils import logging as trace
 from relp_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("driver")
@@ -159,6 +160,43 @@ def _host_columns(engine, x) -> np.ndarray:
     return (x if shard is None else shard.gather(x)).cpu().numpy()
 
 
+class _ChunkSpans:
+    """The chunk loop's spans: ``chunk`` from ``run_chunk``'s call to the
+    loop's first host read of the state it returns (the synchronisation),
+    and ``chunk.exit`` from there to the next call or the phase's return.
+    A chunk's pivots are the change of the iteration count between the
+    reads of it that the loop and its caller make anyway: ``settle`` adds
+    them to the chunk's span at the first read after it."""
+
+    def __init__(self):
+        self.chunk = self.exit = self.pending = None
+        self.it0 = 0
+
+    def run(self, it0: int) -> None:
+        """``run_chunk`` is called on a state of ``it0`` pivots."""
+        trace.end(self.exit)
+        self.exit = None
+        self.chunk, self.it0 = trace.start("chunk"), it0
+
+    def synced(self) -> None:
+        """The loop's first host read of the chunk's state has returned."""
+        trace.end(self.chunk)
+        self.pending, self.chunk = self.chunk, None
+        self.exit = trace.start("chunk.exit")
+
+    def settle(self, iteration: int) -> int:
+        """The iteration count the loop has just read; returned."""
+        if self.pending is not None:
+            self.pending.count(pivots=iteration - self.it0)
+            self.pending = None
+        return iteration
+
+    def close(self) -> None:
+        """The phase returns."""
+        trace.end(self.exit)
+        self.exit = None
+
+
 def _run_phase(
     engine,
     state,
@@ -170,6 +208,7 @@ def _run_phase(
     candidate_mask,
     cfg: SolverConfig,
     stats: SolveStats,
+    chunks: _ChunkSpans,
     stop_at_zero: bool = False,
 ):
     """Run chunks until the phase terminates.
@@ -209,14 +248,17 @@ def _run_phase(
     for _ in range(max_chunks):
         mode = PRICE_BLAND if bland_mode else pricing
         scan = A_full if polishing else A_scan
-        it_before = int(state.iteration)
+        it_before = chunks.settle(int(state.iteration))
         state_entry = state
+        chunks.run(it_before)
         state = engine.run_chunk(
             state, scan, A_full, c, candidate_mask, mode, cfg,
             stop_at_zero=stop_at_zero,
         )
         stats.chunks += 1
-        if not np.isfinite(float(state.obj)):
+        finite = np.isfinite(float(state.obj))
+        chunks.synced()
+        if not finite:
             # One catastrophic pivot can blow the product-form carry to
             # inf/nan mid-chunk.  The chunk-entry state is still good: roll
             # back, clean the carry, and retry once with a conservative
@@ -225,7 +267,7 @@ def _run_phase(
             _log.info(
                 "chunk exploded to nan (retry %d): rolling back %d pivots, "
                 "retrying with pivot_tol=1e-5",
-                nan_retries, int(state.iteration) - it_before,
+                nan_retries, chunks.settle(int(state.iteration)) - it_before,
             )
             if nan_retries > 3:
                 state = _with_status(state_entry, SINGULAR)
@@ -235,12 +277,15 @@ def _run_phase(
                 state = _with_status(state, SINGULAR)
                 break
             safe_cfg = dataclasses.replace(cfg, pivot_tol=max(cfg.pivot_tol, 1e-5))
+            chunks.run(it_before)
             state = engine.run_chunk(
                 state, scan, A_full, c, candidate_mask, mode, safe_cfg,
                 stop_at_zero=stop_at_zero,
             )
             stats.chunks += 1
-            if not np.isfinite(float(state.obj)):
+            finite = np.isfinite(float(state.obj))
+            chunks.synced()
+            if not finite:
                 state = _with_status(state, SINGULAR)
                 break
         status = int(state.status)
@@ -305,7 +350,7 @@ def _run_phase(
             _log.info(
                 "refactor breakdown after chunk (res %s, retry %d): "
                 "rolling back %d pivots, retrying with pivot_tol=1e-5",
-                residual, nan_retries, int(state.iteration) - it_before,
+                residual, nan_retries, chunks.settle(int(state.iteration)) - it_before,
             )
             recovered = False
             if nan_retries <= 3:
@@ -316,14 +361,18 @@ def _run_phase(
                     safe_cfg = dataclasses.replace(
                         cfg, pivot_tol=max(cfg.pivot_tol, 1e-5)
                     )
+                    chunks.run(it_before)
                     state_rb = engine.run_chunk(
                         state_rb, scan, A_full, c, candidate_mask, mode,
                         safe_cfg, stop_at_zero=stop_at_zero,
                     )
                     stats.chunks += 1
+                    # The refactorization's residual is this chunk's first
+                    # host read.
                     state_rb, res_rb = engine.refactor(
                         state_rb, A_full, b, c, cfg, stats
                     )
+                    chunks.synced()
                     if not _breakdown(res_rb):
                         state = state_rb
                         recovered = True
@@ -344,32 +393,39 @@ def _run_phase(
             chunk_exits % max(1, cfg.gamma_refresh_period) == 0
         ):
             state = engine.recompute_gamma(state, scan)
-        if int(state.iteration) >= cfg.max_iterations:
+        if chunks.settle(int(state.iteration)) >= cfg.max_iterations:
             break
 
+    chunks.close()
     return state
 
 
 def _run_dual_phase(
     engine, state, A_scan, A_full, b, c, candidate_mask,
-    cfg: SolverConfig, stats: SolveStats,
+    cfg: SolverConfig, stats: SolveStats, chunks: _ChunkSpans,
 ):
     """Dual simplex pivots until primal feasibility is restored (the basis
     must be dual feasible).  Anything but OPTIMAL sends the caller to a
     cold start, so exact certification stays the only source of negative
-    verdicts."""
+    verdicts.  ``state`` is a fresh one, of 0 pivots."""
     max_chunks = max(1, cfg.max_iterations // max(1, cfg.chunk_size)) + 2
+    iteration = 0
     for _ in range(max_chunks):
+        chunks.run(iteration)
         state = engine.dual_run_chunk(state, A_scan, A_full, c, candidate_mask, cfg)
         stats.chunks += 1
-        if int(state.status) != RUNNING:
+        running = int(state.status) == RUNNING
+        chunks.synced()
+        if not running:
             break
         state, residual = engine.refactor(state, A_full, b, c, cfg, stats)
         if not np.isfinite(residual) or residual > 1e-4:
             state = _with_status(state, SINGULAR)
             break
-        if int(state.iteration) >= cfg.max_iterations:
+        iteration = chunks.settle(int(state.iteration))
+        if iteration >= cfg.max_iterations:
             break
+    chunks.close()
     return state
 
 
@@ -579,27 +635,41 @@ def _solve_relaxation_once(
     warm_start_basis: Optional[List[int]] = None,
     mesh=None,
 ) -> OptimizationResult:
+    """One attempt at one configuration, as one ``solve`` span."""
+    with trace.span("solve") as solve:
+        result = _solve_once(provider, config, warm_start_basis, mesh)
+        stats = result.stats
+        solve.count(pivots=stats.iterations + stats.dual_iterations,
+                    chunks=stats.chunks)
+    return result
+
+
+def _solve_once(provider, config, warm_start_basis, mesh) -> OptimizationResult:
     cfg = config or default_config()
     device = torch_device(cfg)
     if mesh is not None and cfg.carry == "df32":
         raise ValueError("carry='df32' is a single-device rescue path")
     stats = SolveStats()
-    t_start = time.time()
+    t_start = time.perf_counter()
     dtype = _lower_dtype(cfg)
+    chunks = _ChunkSpans()
 
-    problem = lower_provider(
-        provider, dtype=dtype, pad_to=cfg.pad_to, equilibrate=cfg.prescale
-    )
+    with trace.span("lower"):
+        problem = lower_provider(
+            provider, dtype=dtype, pad_to=cfg.pad_to, equilibrate=cfg.prescale
+        )
 
     def place(problem):
         """The engine of this lowering (with a mesh, its column shard
         follows the lowering's N) and its device arrays."""
-        shard = None
-        if mesh is not None:
-            from relp_tpu_torch.parallel.sharded import column_shard
+        with trace.span("place"):
+            shard = None
+            if mesh is not None:
+                from relp_tpu_torch.parallel.sharded import column_shard
 
-            shard = column_shard(mesh, problem.N, device)
-        return make_engine(cfg, device, shard), _device_arrays(problem, cfg, device, shard)
+                shard = column_shard(mesh, problem.N, device)
+            return (make_engine(cfg, device, shard),
+                    _device_arrays(problem, cfg, device, shard))
 
     engine, (A, A_scan, b, c1, c2, candidate_mask) = place(problem)
 
@@ -636,11 +706,15 @@ def _solve_relaxation_once(
             )
             restored = False
             if dual_feasible:
+                # Chunk spans of their own: a dual chunk that ends other
+                # than optimal is never settled by a later read.
+                dual_chunks = _ChunkSpans()
                 state = _run_dual_phase(
                     engine, state, A_scan, A, b, c2, candidate_mask, cfg, stats,
+                    dual_chunks,
                 )
                 if int(state.status) == OPTIMAL:
-                    stats.dual_iterations = int(state.iteration)
+                    stats.dual_iterations = dual_chunks.settle(int(state.iteration))
                     # Phase 2 re-verifies optimality under the configured
                     # pricing rule.
                     state = _with_status(state, RUNNING)
@@ -661,9 +735,9 @@ def _solve_relaxation_once(
     if needs_phase1:
         state = _run_phase(
             engine, state, problem, A_scan, A, b, c1, candidate_mask, cfg,
-            stats, stop_at_zero=True,
+            stats, chunks, stop_at_zero=True,
         )
-        stats.phase1_iterations = int(state.iteration)
+        stats.phase1_iterations = chunks.settle(int(state.iteration))
         status = int(state.status)
         feasible = float(state.obj) <= cfg.phase1_tol
         if status == SINGULAR:
@@ -679,11 +753,11 @@ def _solve_relaxation_once(
             if cfg.certify:
                 basis_np = state.basis.cpu().numpy()
                 phase1_basis = [int(basis_np[i]) for i in range(problem.m_real)]
-                _tc = time.time()
-                stats.certified = certify_infeasible(
-                    problem.provider, phase1_basis, problem.art_offset
-                )
-                stats.certify_time_s += time.time() - _tc
+                with trace.timed("certify") as clock:
+                    stats.certified = certify_infeasible(
+                        problem.provider, phase1_basis, problem.art_offset
+                    )
+                stats.certify_time_s += clock.seconds
             result = _finish(
                 cfg, stats, t_start, SolveStatus.INFEASIBLE,
                 basis=phase1_basis, art_offset=problem.art_offset,
@@ -701,9 +775,10 @@ def _solve_relaxation_once(
             old_basis = state.basis.cpu().numpy()
             removed = set(redundant)
             keep = [i for i in range(problem.m_real) if i not in removed]
-            problem = lower_removing_rows(
-                problem, redundant, dtype=dtype, pad_to=cfg.pad_to
-            )
+            with trace.span("lower"):
+                problem = lower_removing_rows(
+                    problem, redundant, dtype=dtype, pad_to=cfg.pad_to
+                )
             new_basis = problem.initial_basis.copy()
             for new_i, old_i in enumerate(keep):
                 j = int(old_basis[old_i])
@@ -721,9 +796,9 @@ def _solve_relaxation_once(
 
     # --- phase 2 ---
     state = _run_phase(
-        engine, state, problem, A_scan, A, b, c2, candidate_mask, cfg, stats
+        engine, state, problem, A_scan, A, b, c2, candidate_mask, cfg, stats, chunks
     )
-    stats.iterations = int(state.iteration)
+    stats.iterations = chunks.settle(int(state.iteration))
     status = int(state.status)
     if status == SINGULAR:
         return _finish(cfg, stats, t_start, SolveStatus.NUMERICAL_ERROR)
@@ -734,11 +809,11 @@ def _solve_relaxation_once(
         if cfg.certify:
             basis_np = state.basis.cpu().numpy()
             structural = [int(basis_np[i]) for i in range(problem.m_real)]
-            _tc = time.time()
-            stats.certified = certify_unbounded(
-                problem.provider, structural, art_offset=problem.art_offset
-            )
-            stats.certify_time_s += time.time() - _tc
+            with trace.timed("certify") as clock:
+                stats.certified = certify_unbounded(
+                    problem.provider, structural, art_offset=problem.art_offset
+                )
+            stats.certify_time_s += clock.seconds
         result = _finish(
             cfg, stats, t_start, SolveStatus.UNBOUNDED,
             basis=structural, art_offset=problem.art_offset,
@@ -776,15 +851,15 @@ def _solve_relaxation_once(
     result.removed_rows = stats.removed_rows  # type: ignore[attr-defined]
 
     if cfg.certify:
-        _tc = time.time()
-        certify_and_repair(result, problem.provider, structural_basis, cfg)
-        stats.certify_time_s += time.time() - _tc
+        with trace.timed("certify") as clock:
+            certify_and_repair(result, problem.provider, structural_basis, cfg)
+        stats.certify_time_s += clock.seconds
     else:
         result.bfs = SparseVector(
             [(j, Fraction(float(v))) for j, v in entries], problem.n_real
         )
 
-    stats.wall_time_s = time.time() - t_start
+    stats.wall_time_s = time.perf_counter() - t_start
     return result
 
 
@@ -792,7 +867,7 @@ def _finish(
     cfg: SolverConfig, stats: SolveStats, t_start: float, status: SolveStatus,
     *, basis=None, art_offset=None,
 ) -> OptimizationResult:
-    stats.wall_time_s = time.time() - t_start
+    stats.wall_time_s = time.perf_counter() - t_start
     return OptimizationResult(
         status=status, stats=stats, basis=basis, art_offset=art_offset
     )
@@ -802,13 +877,20 @@ def solve_general_form(
     general_form, config: Optional[SolverConfig] = None
 ) -> Tuple[OptimizationResult, Optional[Solution]]:
     """Full pipeline on a GeneralForm: presolve -> standardize -> solve ->
-    reconstruct.  Returns (result, Solution or None)."""
+    reconstruct.  Returns (result, Solution or None), as one ``request``
+    span."""
+    with trace.span("request"):
+        return _solve_general_form(general_form, config)
+
+
+def _solve_general_form(general_form, config):
     cfg = config or default_config()
     gf = general_form
 
     if cfg.presolve:
         try:
-            gf.presolve()
+            with trace.span("presolve"):
+                gf.presolve()
         except LinearProgramError as exc:
             stats = SolveStats()
             if exc.status is LPStatus.FINITE_OPTIMUM:
@@ -828,13 +910,15 @@ def solve_general_form(
                 return OptimizationResult(SolveStatus.INFEASIBLE, stats=stats), None
             return OptimizationResult(SolveStatus.UNBOUNDED, stats=stats), None
 
-    counts = gf.standardize()
-    matrix_data = gf.derive_matrix_data(counts)
+    with trace.span("standardize"):
+        counts = gf.standardize()
+        matrix_data = gf.derive_matrix_data(counts)
     result = solve_relaxation(matrix_data, cfg)
     if not result.is_optimal():
         return result, None
 
-    reduced = result.exact_bfs if result.exact_bfs is not None else result.bfs
-    reduced = matrix_data.reconstruct_solution(reduced)
-    solution = gf.compute_full_solution_with_reduced_solution(reduced)
+    with trace.span("reconstruct"):
+        reduced = result.exact_bfs if result.exact_bfs is not None else result.bfs
+        reduced = matrix_data.reconstruct_solution(reduced)
+        solution = gf.compute_full_solution_with_reduced_solution(reduced)
     return result, solution

@@ -125,7 +125,6 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-import time
 import weakref
 from collections import Counter, OrderedDict
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
@@ -136,6 +135,7 @@ from torch.utils._pytree import tree_map
 
 from relp_tpu_torch.ops import batch_pivot, eta_ring, price_scan
 from relp_tpu_torch.simplex import df_kernels, kernels, lu
+from relp_tpu_torch.utils import logging as trace
 
 # The graph type, and the devices whose chunks the engines and
 # ``pdhg_solve`` capture (the tests put a recording stand-in and the CPU
@@ -144,7 +144,8 @@ Graph = torch.cuda.CUDAGraph
 DEVICE_TYPES = ("cuda",)
 
 # Captures, replays and capture seconds (warm-up included) since the last
-# reset, over every cache, and the entries the bounded cache evicted.
+# reset, over every cache, and the entries the bounded cache evicted.  The
+# capture seconds are the sum of the ``graph.capture`` spans' durations.
 CAPTURES = 0
 REPLAYS = 0
 CAPTURE_SECONDS = 0.0
@@ -499,40 +500,40 @@ class ChunkGraphs:
         global CAPTURES, CAPTURE_SECONDS
         device = state[0].device
         counts = launch_counts()
-        t0 = time.perf_counter()
-        graph = Graph()
-        stream, on_stream = None, contextlib.nullcontext()
-        if device.type == "cuda":
-            stream = _STREAMS.get(device.index)
-            if stream is None:
-                stream = _STREAMS[device.index] = torch.cuda.Stream(device)
-            stream.wait_stream(torch.cuda.current_stream(device))
-            on_stream = torch.cuda.stream(stream)
-        with on_stream:
-            body(state, **inputs, **dict(static, chunk=1))  # the warm-up
+        with trace.timed("graph.capture", tag=body.__name__) as clock:
+            graph = Graph()
+            stream, on_stream = None, contextlib.nullcontext()
+            if device.type == "cuda":
+                stream = _STREAMS.get(device.index)
+                if stream is None:
+                    stream = _STREAMS[device.index] = torch.cuda.Stream(device)
+                stream.wait_stream(torch.cuda.current_stream(device))
+                on_stream = torch.cuda.stream(stream)
+            with on_stream:
+                body(state, **inputs, **dict(static, chunk=1))  # the warm-up
+                if stream is not None:
+                    torch.cuda.synchronize(device)
+                before = launch_counts()
+                reserved = _reserved(device)
+                # With a process group up, the capture refuses unsafe calls of
+                # this thread only: ProcessGroupNCCL's watchdog thread queries
+                # the CUDA events of eager collectives, which a capture in the
+                # default global mode would take as its own error.
+                graph.capture_begin(capture_error_mode="thread_local"
+                                    if dist.is_available() and dist.is_initialized()
+                                    else "global")
+                try:
+                    outputs = body(state, **inputs, **static)
+                finally:
+                    graph.capture_end()
+                pool_bytes = max(0, _reserved(device) - reserved)
             if stream is not None:
-                torch.cuda.synchronize(device)
-            before = launch_counts()
-            reserved = _reserved(device)
-            # With a process group up, the capture refuses unsafe calls of
-            # this thread only: ProcessGroupNCCL's watchdog thread queries
-            # the CUDA events of eager collectives, which a capture in the
-            # default global mode would take as its own error.
-            graph.capture_begin(capture_error_mode="thread_local"
-                                if dist.is_available() and dist.is_initialized()
-                                else "global")
-            try:
-                outputs = body(state, **inputs, **static)
-            finally:
-                graph.capture_end()
-            pool_bytes = max(0, _reserved(device) - reserved)
-        if stream is not None:
-            torch.cuda.current_stream(device).wait_stream(stream)
-        launches = {name: n - before[name] for name, n in launch_counts().items()}
-        _set_launch_counts(counts)
-        if must_launch and device.type == "cuda" and not launches[must_launch]:
-            raise RuntimeError(
-                f"captured a {body.__name__} that launched no {must_launch} kernel")
+                torch.cuda.current_stream(device).wait_stream(stream)
+            launches = {name: n - before[name] for name, n in launch_counts().items()}
+            _set_launch_counts(counts)
+            if must_launch and device.type == "cuda" and not launches[must_launch]:
+                raise RuntimeError(
+                    f"captured a {body.__name__} that launched no {must_launch} kernel")
         CAPTURES += 1
-        CAPTURE_SECONDS += time.perf_counter() - t0
+        CAPTURE_SECONDS += clock.seconds
         return _Entry(graph, outputs, launches, static, slots, bound, pool_bytes)

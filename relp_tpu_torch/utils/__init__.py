@@ -1,3 +1,3 @@
-from relp_tpu_torch.utils.logging import get_logger, log_solve_stats, profile_trace
+from relp_tpu_torch.utils.logging import get_logger
 
-__all__ = ["get_logger", "log_solve_stats", "profile_trace"]
+__all__ = ["get_logger"]

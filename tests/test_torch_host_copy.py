@@ -5,7 +5,8 @@
 certification, rational helpers, sparse algebra, lowering, results,
 checkpoints): it imports nothing of ``relp_tpu``.  Each copy must equal its
 original after the rename ``relp_tpu.`` -> ``relp_tpu_torch.``, apart from
-the lines listed in ``ALLOWED``, so that drift between the two shows here.
+the lines listed in ``ALLOWED`` and ``OWN_LINES`` and the functions in
+``OWN_FUNCTION``, so that drift between the two shows here.
 
 ``twin`` gives the port's tests the inputs of a JAX-side test helper built
 by the port's own classes (and ``relp_tpu_torch.testing`` built by the JAX
@@ -66,6 +67,14 @@ ALLOWED = frozenset({
 # jax.default_backend() where the port asks the solve's torch device.
 OWN_FUNCTION = {"simplex/host_sparse.py": "should_use_host_sparse"}
 
+# path -> lines of the copy that are the port's own, each present once and
+# left out of the comparison: the span each branch-and-bound search records
+# in the port's recorder (relp_tpu_torch.utils.logging).
+OWN_LINES = {
+    "mip/branch_bound.py": ("from relp_tpu_torch.utils.logging import traced",
+                            '@traced("bb.search")'),
+}
+
 
 def _without_function(text: str, name: str) -> list:
     """The lines of ``text`` without the top-level function ``name``."""
@@ -90,6 +99,9 @@ def test_host_module_is_the_renamed_original(path):
         copy = _without_function(copy, OWN_FUNCTION[path])
     else:
         original, copy = original.splitlines(), copy.splitlines()
+    own = OWN_LINES.get(path, ())
+    assert all(copy.count(line) == 1 for line in own)
+    copy = [line for line in copy if line not in own]
     assert len(copy) == len(original)
     differ = [(i + 1, line) for i, (want, line) in enumerate(zip(original, copy))
               if line != want and (path, line) not in ALLOWED]
