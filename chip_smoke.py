@@ -2576,9 +2576,13 @@ def phase_lu_real(torch, found):
         generated_lp,
     )
 
+    from relp_tpu_torch.simplex import graphs
     from relp_tpu_torch.simplex import lu as lu_mod
 
     kept, calls, split = {}, [], {}
+    # An empty process-wide cache of chunks, so that its LU entries are
+    # this solve's captures (mip/small's LU solves came before).
+    graphs._CHUNKS = None
     graphs0 = _graph_counts()
     with _splitting_solve(torch, engine.LUEngine, split), \
             _keeping_profiled_chunk(engine.LUEngine, kept, calls):
@@ -2597,8 +2601,7 @@ def phase_lu_real(torch, found):
            f"lu/real: {graph_counts['replays']} replays for {result.stats.chunks} chunks")
     pivots = result.stats.iterations  # both phases' pivots
     solve_s = result.stats.wall_time_s - result.stats.certify_time_s
-    lu_engine = kept["run_chunk"][0][0]
-    by_eta0 = lu_engine._graphs.captured(lu_mod.lu_run_chunk, "eta0")
+    by_eta0 = graphs.chunks().captured(lu_mod.lu_run_chunk, "eta0")
     replay = _Replay(torch, "lu/real", kept, calls)
     _line(
         "lu/real", m=REAL_SIZE["m"], n=REAL_SIZE["n"], status=result.status.value,

@@ -551,9 +551,6 @@ def _solve_batch(providers, config, *, certify, shared_structure, mesh,
     n_rescued = 0
     _A64_cache = {}
     _debug_gates = _os.environ.get("RELP_TPU_BATCH_DEBUG", "")
-    # The single-LP fallbacks' captured chunks, one cache for the call: a
-    # wave's LPs have one shape, so each kind of chunk is captured once.
-    fallback_graphs = graphs.ChunkGraphs()
 
     def _host_f64_rescue(k, problem):
         """Basis-exact xB/obj in f64 on the host (one LU solve) for an LP
@@ -626,8 +623,7 @@ def _solve_batch(providers, config, *, certify, shared_structure, mesh,
                 flush=True,
             )
         if not ok or not numerics_ok or not artificial_ok:
-            results.append(_single_lp_fallback(provider, cfg, certify,
-                                               fallback_graphs))
+            results.append(_single_lp_fallback(provider, cfg, certify))
             n_fallback += 1
             continue
 
@@ -657,8 +653,7 @@ def _solve_batch(providers, config, *, certify, shared_structure, mesh,
             if not result.stats.certified:
                 # Numerically troubled LPs go to the single-LP driver (with
                 # its f64 escalation) rather than ship uncertified.
-                results.append(_single_lp_fallback(provider, cfg, certify,
-                                                   fallback_graphs))
+                results.append(_single_lp_fallback(provider, cfg, certify))
                 n_fallback += 1
                 continue
         else:
@@ -683,18 +678,17 @@ def _solve_batch(providers, config, *, certify, shared_structure, mesh,
 
 
 def _single_lp_fallback(
-    provider: MatrixProvider, cfg: SolverConfig, certify: bool,
-    chunk_graphs: graphs.ChunkGraphs,
+    provider: MatrixProvider, cfg: SolverConfig, certify: bool
 ) -> OptimizationResult:
     """Solve one LP through the port's single-LP driver (rank repair, Bland,
     f64 escalation); used for batch members that failed the lockstep path.
-    Its chunks on a card replay from ``chunk_graphs`` (``graphs.shared``)."""
+    Its chunks on a card replay from the process-wide cache of chunks, so a
+    wave's fallbacks of one shape capture each kind of chunk once."""
     from relp_tpu_torch.simplex.driver import solve_relaxation
 
     # device_refactor is a batched-chunk notion; dropping it re-clamps
     # chunk_size <= refactor_period in __post_init__.
     single_cfg = dataclasses.replace(cfg, certify=certify, device_refactor=False)
-    with graphs.shared(chunk_graphs):
-        result = solve_relaxation(provider, single_cfg)
+    result = solve_relaxation(provider, single_cfg)
     result.stats.batch_fallback = True
     return result

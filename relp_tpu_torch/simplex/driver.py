@@ -59,6 +59,7 @@ from relp_tpu_torch.simplex.result import (
 )
 from relp_tpu_torch.utils.debug import validate_bfs_state
 from relp_tpu_torch.config import SolverConfig, default_config, torch_device
+from relp_tpu_torch.simplex import graphs
 from relp_tpu_torch.simplex.engine import make_engine, scan_dtype
 from relp_tpu_torch.simplex.host_sparse import (
     should_use_host_sparse,
@@ -635,12 +636,19 @@ def _solve_relaxation_once(
     warm_start_basis: Optional[List[int]] = None,
     mesh=None,
 ) -> OptimizationResult:
-    """One attempt at one configuration, as one ``solve`` span."""
+    """One attempt at one configuration, as one ``solve`` span, which counts
+    the graph captures the attempt made (0 where every chunk replayed from
+    the process-wide cache).  At its end that cache is trimmed to its
+    bound, so that nothing of the attempt outlives it beyond the bound."""
     with trace.span("solve") as solve:
-        result = _solve_once(provider, config, warm_start_basis, mesh)
+        captures = graphs.CAPTURES
+        try:
+            result = _solve_once(provider, config, warm_start_basis, mesh)
+        finally:
+            graphs.trim()
         stats = result.stats
         solve.count(pivots=stats.iterations + stats.dual_iterations,
-                    chunks=stats.chunks)
+                    chunks=stats.chunks, captures=graphs.CAPTURES - captures)
     return result
 
 

@@ -8,11 +8,12 @@
   ``simplex/df_kernels.py``, ``carry="df32"``.
 
 On a CUDA card every engine runs its chunks (the dense engine's primal and
-dual ones) as captured CUDA graphs (``simplex/graphs.py``); under a mesh
-the dense and LU chunks too, their collectives captured with them (the
-shard is a static argument of the chunk).  On the CPU, and so under gloo,
-they run eagerly.  Refactorization, ``recompute_gamma`` and the forced
-pivot stay eager.
+dual ones) as captured CUDA graphs (``simplex/graphs.py``), replayed from
+the process-wide cache by every later solve of the shape; under a mesh
+the dense and LU chunks too, from a cache of the engine's own, their
+collectives captured with them (the shard is a static argument of the
+chunk).  On the CPU, and so under gloo, they run eagerly.
+Refactorization, ``recompute_gamma`` and the forced pivot stay eager.
 """
 
 from __future__ import annotations
@@ -54,18 +55,25 @@ def _scalar(value, dtype, device) -> torch.Tensor:
 
 
 class _CapturedChunks:
-    """An engine's cache of captured chunks."""
+    """Where an engine's captured chunks live: without a shard in the
+    process-wide cache (``graphs.chunks()``), so that a later solve of the
+    shape replays them; with one in a cache of the engine's own, which goes
+    with the engine (every rank of a mesh would have to agree on each
+    eviction of a cache that outlives a solve)."""
 
     shard = None
     _graphs: Optional[graphs.ChunkGraphs] = None
 
     def _chunk_graphs(self, state) -> Optional[graphs.ChunkGraphs]:
-        """This engine's captured chunks when ``state`` lies on a card,
-        sharded or not; None when the chunk runs eagerly (the CPU)."""
+        """The cache of this engine's captured chunks when ``state`` lies on
+        a card, sharded or not; None when the chunk runs eagerly (the
+        CPU)."""
         if state[0].device.type not in graphs.DEVICE_TYPES:
             return None
+        if self.shard is None:
+            return graphs.chunks()
         if self._graphs is None:
-            self._graphs = graphs.cache()
+            self._graphs = graphs.ChunkGraphs()
         return self._graphs
 
 

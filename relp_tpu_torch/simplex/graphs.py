@@ -75,23 +75,30 @@ batch step: that and its report, a tensor).
   steepest-edge dense primal or df32 chunk, the batched-pivot kernel of
   the kernel route's step, the eta-ring FTRAN for the LU chunk) that
   counted no launch of it raises.
-* **Lifetime**: a cache belongs to one engine, and so to one solve of one
-  rung (or to one ``pdhg_solve`` call); its graphs, their memory pools and
-  its static buffers go with it.  Inside ``shared(cache)`` every engine
-  takes that one cache instead: ``solve_batch`` gives its single-LP
-  fallbacks one cache for the call, so that a wave of node LPs of one
-  shape captures each kind of chunk once, not once a node LP; it goes when
-  the call returns.  The batch driver's steps and chunks replay from one
-  cache for the process (``steps()``), as the JAX package jits them at
-  module scope: a MIP calls ``solve_batch`` once a node wave, and waves of
-  one shape capture each step once.  That cache runs a key eagerly at its
-  first use and captures it at its second, so that a step taken once (a
-  one-off call's phase 1, a call's polish) costs what an eager step costs
-  and no capture.  It is bounded by bytes: past ``STEP_CACHE_BYTES`` (its
-  graphs' memory pools, as the capture grew the card's reserved memory,
-  its static buffers and the tensors its entries read in place) it evicts
-  the least recently used entries, each with its graph, its memory pool,
-  its static outputs and the static input buffers no other entry uses.
+* **Lifetime**: the chunks of unsharded engines replay from one cache for
+  the process (``chunks()``), as the JAX package jits its chunks at module
+  scope: every single-LP solve on a card (the dense, LU and df32 engines;
+  a MIP's root, cut, strong-branching and dive solves; ``solve_batch``'s
+  single-LP fallbacks) takes it, so that a solve of a shape already
+  captured replays and captures nothing.  It captures a key at its first
+  use, so a one-off solve costs what it costs with a cache of its own.
+  It is bounded by bytes: past ``STEP_CACHE_BYTES`` (its graphs' memory
+  pools, as the capture grew the card's reserved memory, and its static
+  buffers) it evicts the least recently used entries, each with its
+  graph, its memory pool, its static outputs and the static input buffers
+  no other entry uses, and at the end of every solve (``trim()``) it
+  evicts down to that bound, keeping nothing past it: an LP whose graphs
+  and buffers alone pass the bound leaves nothing behind.  A sharded
+  engine has a cache of its own, for one solve of one rung, and a
+  ``pdhg_solve`` call one for the call: their graphs, memory pools and
+  static buffers go with them.  The batch driver's steps and chunks
+  replay from another cache for the process (``steps()``): a MIP calls
+  ``solve_batch`` once a node wave, and waves of one shape capture each
+  step once.  That cache runs a key eagerly at its first use and captures
+  it at its second, so that a step taken once (a one-off call's phase 1,
+  a call's polish) costs what an eager step costs and no capture.  It is
+  bounded as the cache of chunks is, alone, and counts the tensors its
+  entries read in place among its bytes.
 
 * **Meshes**: under a mesh the chunks and steps are captured as without
   one, with their collectives (``parallel.sharded``'s all_reduce and
@@ -124,7 +131,6 @@ execution or to a kernel's plain version.
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import weakref
 from collections import Counter, OrderedDict
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
@@ -151,16 +157,17 @@ REPLAYS = 0
 CAPTURE_SECONDS = 0.0
 EVICTIONS = 0
 
-# The bytes each cache of the batch driver's steps may hold (graph pools,
-# static buffers, tensors read in place), a twentieth of an 80 GB card:
-# the process-wide cache of unsharded steps, and each column group's cache
-# of sharded steps, each bounded alone, so that a process holds at most
-# this times one more than the groups whose caches are up
+# The bytes each process-wide cache may hold (graph pools, static buffers,
+# tensors read in place), a twentieth of an 80 GB card: the cache of the
+# unsharded engines' chunks, the cache of unsharded steps, and each column
+# group's cache of sharded steps, each bounded alone, so that a process
+# holds at most this times two more than the groups whose caches are up
 # (``release_group`` drops a group's).  chip_smoke's paths hold at most a
 # few hundred MB (``step_cache_MB`` on its lines; PERF.md).
 STEP_CACHE_BYTES = 4 << 30
 # Keys the cache of steps remembers having run once (eagerly).
 _SEEN_LIMIT = 4096
+_CHUNKS: Optional["ChunkGraphs"] = None
 _STEPS: Optional["ChunkGraphs"] = None
 # The caches of sharded steps, one for each process group of a mesh's
 # columns, each until ``release_group``.
@@ -170,24 +177,20 @@ _GROUP_STEPS: Dict[Any, "ChunkGraphs"] = {}
 # cuBLAS workspaces of its own).
 _STREAMS: Dict[int, "torch.cuda.Stream"] = {}
 
-# The cache of the innermost ``shared`` block, if any.
-_SHARED: contextvars.ContextVar[Optional["ChunkGraphs"]] = contextvars.ContextVar(
-    "relp_tpu_torch_shared_chunk_graphs", default=None)
+
+def chunks() -> "ChunkGraphs":
+    """The process-wide, bounded cache of the unsharded engines' chunks."""
+    global _CHUNKS
+    if _CHUNKS is None:
+        _CHUNKS = ChunkGraphs(max_bytes=STEP_CACHE_BYTES)
+    return _CHUNKS
 
 
-@contextlib.contextmanager
-def shared(chunk_graphs: "ChunkGraphs"):
-    """Engines whose first chunk runs inside the block take ``chunk_graphs``."""
-    token = _SHARED.set(chunk_graphs)
-    try:
-        yield
-    finally:
-        _SHARED.reset(token)
-
-
-def cache() -> "ChunkGraphs":
-    """The cache for a new engine: the ``shared`` block's, else its own."""
-    return _SHARED.get() or ChunkGraphs()
+def trim() -> None:
+    """Evict from the cache of chunks down to its bound, to no entry if
+    need be (the driver's end of a solve)."""
+    if _CHUNKS is not None:
+        _CHUNKS.trim()
 
 
 def steps(group=None) -> "ChunkGraphs":
@@ -307,8 +310,9 @@ class _Entry:
 
 
 class ChunkGraphs:
-    """Captured chunks: one engine's, or the process-wide cache of the
-    batch driver's steps (see the module docstring), with ``max_bytes``,
+    """Captured chunks: the process-wide cache of the unsharded engines'
+    chunks or of the batch driver's steps, a sharded engine's or a
+    ``pdhg_solve`` call's (see the module docstring), with ``max_bytes``,
     the bytes it holds at most, ``second_use``, capture at a key's second
     use, and ``group``, the process group whose ranks run this cache's
     chunks in lockstep (they evict what the largest count over the group
@@ -465,9 +469,18 @@ class ChunkGraphs:
         if self._seen is not None:
             self._seen.clear()
 
-    def _evict(self, device: torch.device) -> None:
+    def trim(self) -> None:
+        """Evict the least recently used entries until the cache holds at
+        most ``max_bytes``, to no entry if need be, and drop the static
+        buffers no kept entry reads."""
+        self._evict(None, keep=0)
+        self._prune()
+
+    def _evict(self, device: Optional[torch.device], keep: int = 1) -> None:
+        """Evict past ``max_bytes``, keeping at least ``keep`` entries (the
+        one a capture just made)."""
         global EVICTIONS
-        while (self.max_bytes is not None and len(self._entries) > 1
+        while (self.max_bytes is not None and len(self._entries) > keep
                and self._held(device) > self.max_bytes):
             self._entries.popitem(last=False)
             EVICTIONS += 1

@@ -543,14 +543,16 @@ class RecordingGraph:
 @contextlib.contextmanager
 def recording_graphs():
     """``simplex.graphs`` with ``RecordingGraph`` as its graph type and the
-    CPU among the captured devices, its caches of steps empty, inside the
-    block; as it was after it."""
+    CPU among the captured devices, its caches of chunks and steps empty,
+    inside the block; as it was after it."""
     from relp_tpu_torch.simplex import graphs
 
-    kept = graphs.Graph, graphs.DEVICE_TYPES, graphs._STEPS, graphs._GROUP_STEPS
+    kept = (graphs.Graph, graphs.DEVICE_TYPES, graphs._CHUNKS, graphs._STEPS,
+            graphs._GROUP_STEPS)
     graphs.Graph, graphs.DEVICE_TYPES = RecordingGraph, ("cuda", "cpu")
-    graphs._STEPS, graphs._GROUP_STEPS = None, {}
+    graphs._CHUNKS, graphs._STEPS, graphs._GROUP_STEPS = None, None, {}
     try:
         yield
     finally:
-        graphs.Graph, graphs.DEVICE_TYPES, graphs._STEPS, graphs._GROUP_STEPS = kept
+        (graphs.Graph, graphs.DEVICE_TYPES, graphs._CHUNKS, graphs._STEPS,
+         graphs._GROUP_STEPS) = kept

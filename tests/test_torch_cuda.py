@@ -34,7 +34,9 @@ chunk's bits, primal and dual, at an aligned, an unaligned and a ragged
 shape; so do the LU chunk (entering with an empty ring and with etas in
 it), the df32 chunk (with the eager chunk's scan launches) and the PDHG
 chunk, and whole solves with ``basis_inverse="lu"`` and ``carry="df32"``
-and ``pdhg_solve`` give the eager results through them.  The batch
+and ``pdhg_solve`` give the eager results through them; a second solve
+of an LP of one shape captures nothing, replaying the process-wide cache,
+with its eager solve's bits.  The batch
 driver's steps (``_batch_step`` on the kernel route and the batched torch
 path, the dual and the polish chunk) replayed from the process-wide cache
 give the eager steps' bits and kernel launches, also a kernel-route graph
@@ -443,6 +445,38 @@ def test_graphed_solves_equal_eager_solves(cuda_device, mode):
         assert graphs.REPLAYS == replays
     finally:
         graphs.DEVICE_TYPES = kept
+
+
+def test_graphed_solves_of_one_shape_share_the_process_cache(cuda_device):
+    """Two solve_general_form calls with LPs of one shape: the first
+    captures its chunks into the process-wide cache, the second captures
+    nothing and replays them, and each gives, bit for bit, what its solve
+    with graphs.DEVICE_TYPES emptied (eager chunks) gives: the verdict,
+    the exact and the float objective, the basis, the pivots and chunks."""
+    from relp_tpu_torch.simplex import graphs
+
+    def solve(seed):
+        result, _solution = solve_general_form(generated_lp(64, 256, seed), SolverConfig())
+        assert result.stats.certified
+        return (result.status, result.exact_objective, result.objective, result.basis,
+                result.stats.iterations, result.stats.phase1_iterations,
+                result.stats.chunks)
+
+    graphs._CHUNKS = None
+    graphed, captures = [], []
+    for seed in (7, 8):
+        before = graphs.CAPTURES
+        graphed.append(solve(seed))
+        captures.append(graphs.CAPTURES - before)
+    kept = graphs.DEVICE_TYPES
+    graphs.DEVICE_TYPES = ()
+    try:
+        replays = graphs.REPLAYS
+        assert [solve(seed) for seed in (7, 8)] == graphed
+        assert graphs.REPLAYS == replays
+    finally:
+        graphs.DEVICE_TYPES = kept
+    assert captures[0] > 0 and captures[1] == 0
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

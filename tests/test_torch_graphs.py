@@ -20,6 +20,12 @@ hold:
 * ``solve_general_form`` / ``solve_relaxation`` through ``DenseEngine``
   with captured chunks giving the eager path's pivots, bases and exact
   objectives on the CPU-sized cases of tests/test_torch_driver.py;
+* every unsharded engine (dense, LU, df32) taking the process-wide cache
+  of chunks, so that separate solves of one shape capture each key once
+  and a second call nothing, each with its eager result; the end of a
+  solve trimming that cache to its bound in bytes, to no entry; a
+  sharded engine and a ``pdhg_solve`` call capturing into caches of their
+  own, again on every call;
 * the LU chunk (steepest edge and Dantzig, entering with an empty ring and
   with etas in it, with and without phase 1's stop at zero), the df32
   chunk and the PDHG chunk (replayed with a changed Halpern counter and
@@ -72,12 +78,14 @@ from tests.test_torch_driver import PORT, SCAN_BF16, SIMPLEX_SMALL
 @pytest.fixture
 def recording(monkeypatch):
     """The stand-in as the graph type, the CPU among the captured devices,
-    the module's counters from zero, and a process-wide cache of the batch
-    driver's steps (``graphs.steps()``) that lives for the test."""
+    the module's counters from zero, and process-wide caches of the
+    engines' chunks (``graphs.chunks()``) and of the batch driver's steps
+    (``graphs.steps()``) that live for the test."""
     monkeypatch.setattr(graphs, "Graph", RecordingGraph)
     monkeypatch.setattr(graphs, "DEVICE_TYPES", ("cuda", "cpu"))
     for name, zero in (("CAPTURES", 0), ("REPLAYS", 0), ("CAPTURE_SECONDS", 0.0),
-                       ("EVICTIONS", 0), ("_STEPS", None), ("_GROUP_STEPS", {})):
+                       ("EVICTIONS", 0), ("_CHUNKS", None), ("_STEPS", None),
+                       ("_GROUP_STEPS", {})):
         monkeypatch.setattr(graphs, name, zero)
 
 
@@ -278,6 +286,7 @@ def test_solves_through_captured_chunks_match_eager(monkeypatch, name, dtype):
         patched.setattr(graphs, "Graph", RecordingGraph)
         patched.setattr(graphs, "DEVICE_TYPES", ("cuda", "cpu"))
         patched.setattr(graphs, "REPLAYS", 0)
+        patched.setattr(graphs, "_CHUNKS", None)
         captured, _solution = solve_general_form(build(PORT), cfg)
         replays = graphs.REPLAYS
     assert _solve_summary(captured) == _solve_summary(eager)
@@ -301,6 +310,7 @@ def test_warm_dual_restart_through_captured_chunks_matches_eager(monkeypatch):
         with monkeypatch.context() as patched:
             patched.setattr(graphs, "Graph", RecordingGraph)
             patched.setattr(graphs, "DEVICE_TYPES", ("cuda", "cpu"))
+            patched.setattr(graphs, "_CHUNKS", None)
             captured = solve_relaxation(provider(b2), cfg, warm_start_basis=basis)
         assert _solve_summary(captured) == _solve_summary(eager)
         dual_pivots += captured.stats.dual_iterations
@@ -309,18 +319,22 @@ def test_warm_dual_restart_through_captured_chunks_matches_eager(monkeypatch):
 
 def test_the_engine_captures_only_on_a_captured_device_without_a_mesh(recording,
                                                                      monkeypatch):
-    """Without a mesh, DenseEngine and LUEngine keep one cache for their
-    life on a device in DEVICE_TYPES; a device outside it runs eagerly.  A
-    shard: the next test."""
-    from relp_tpu_torch.simplex.engine import DenseEngine, LUEngine
+    """Without a mesh, DenseEngine, LUEngine and DoubleFloatEngine take the
+    process-wide cache (graphs.chunks()) on a device in DEVICE_TYPES, every
+    engine the same one; a device outside it runs eagerly.  A shard: the
+    next tests."""
+    from relp_tpu_torch.simplex.engine import DenseEngine, DoubleFloatEngine, LUEngine
 
     state = _start()[0]
-    for engine_cls in (DenseEngine, LUEngine):
+    engines = (DenseEngine, LUEngine, DoubleFloatEngine)
+    for engine_cls in engines:
         engine = engine_cls(torch.device("cpu"))
-        cache = engine._chunk_graphs(state)
-        assert isinstance(cache, graphs.ChunkGraphs) and engine._chunk_graphs(state) is cache
+        assert engine._chunk_graphs(state) is graphs.chunks()
+        assert engine._chunk_graphs(state) is graphs.chunks()
+    assert graphs.chunks().max_bytes == graphs.STEP_CACHE_BYTES
+    assert graphs.chunks()._seen is None and graphs.chunks() is not graphs.steps()
     monkeypatch.setattr(graphs, "DEVICE_TYPES", ("cuda",))
-    for engine_cls in (DenseEngine, LUEngine):
+    for engine_cls in engines:
         assert engine_cls(torch.device("cpu"))._chunk_graphs(state) is None
 
 
@@ -340,28 +354,110 @@ def test_a_sharded_engine_captures_on_a_captured_device_too(recording, monkeypat
         assert engine_cls(torch.device("cpu"), shard=object())._chunk_graphs(state) is None
 
 
-def test_a_shared_cache_serves_the_solves_of_one_shape(monkeypatch):
-    """Inside graphs.shared(cache) every solve's engine takes that cache
-    (solve_batch's single-LP fallbacks): LPs of one shape capture each kind
-    of chunk once, and each solve gives its eager verdict, basis and pivots
-    (its own A, b and c copied in)."""
+def test_a_sharded_engine_gets_a_cache_of_its_own(recording):
+    """A sharded engine's cache is its own: neither the process-wide cache
+    of chunks nor another sharded engine's, unbounded, capturing at a key's
+    first use (every rank of a mesh would have to agree on each eviction of
+    a cache that outlives a solve)."""
+    from relp_tpu_torch.simplex.engine import DenseEngine, LUEngine
+
+    state = _start()[0]
+    caches = [engine_cls(torch.device("cpu"), shard=object())._chunk_graphs(state)
+              for engine_cls in (DenseEngine, DenseEngine, LUEngine)]
+    assert len({id(cache) for cache in caches}) == 3
+    assert all(cache.max_bytes is None and cache._seen is None and cache.group is None
+               for cache in caches)
+    assert graphs._CHUNKS is None  # never made
+
+
+@pytest.mark.parametrize("kind", ["sharded", "pdhg"])
+def test_a_sharded_solve_and_a_pdhg_call_capture_into_caches_of_their_own(recording,
+                                                                         kind):
+    """A solve on a sharded engine (a gloo world of one) and a pdhg_solve
+    call each capture into a cache of their own that goes with them: a
+    second call of the same problem gives the same result and captures as
+    many again, and the process-wide cache of chunks is never made."""
+    from relp_tpu_torch.testing import scenario_family
+    from tests.test_torch_mesh import world_of_one
+
+    def call():
+        if kind == "pdhg":
+            A, b, c, u = pdhg_lp(16, 40, 11)
+            x, y, st = pdhg.pdhg_solve(A, b, c, u, tol=1e-7, max_iters=600, chunk=100,
+                                       dtype=np.float64, device="cpu")
+            return x.tobytes(), y.tobytes(), st.iterations, st.restarts
+        with world_of_one() as mesh:
+            return _solve_summary(solve_relaxation(
+                scenario_family(12, 30, 7, 1)[0], SolverConfig(platform="cpu", pad_to=8),
+                mesh=mesh))
+
+    first = call()
+    captures = graphs.CAPTURES
+    assert call() == first and graphs.CAPTURES == 2 * captures > 0
+    assert graphs._CHUNKS is None
+
+
+SOLVE_MODES = {"dense": {}, "lu": dict(basis_inverse="lu"), "df32": dict(carry="df32")}
+
+
+@pytest.mark.parametrize("mode", sorted(SOLVE_MODES))
+def test_a_shared_cache_serves_the_solves_of_one_shape(recording, monkeypatch, mode):
+    """Every unsharded engine takes the process-wide cache of chunks
+    (graphs.chunks()): separate solves of LPs of one shape (a stream's
+    requests, a MIP's single solves, solve_batch's single-LP fallbacks)
+    capture each key once, the first call all of them and a second call
+    none, and each solve gives its eager verdict, basis, pivots and exact
+    objective (its own A, b and c copied in)."""
+    from relp_tpu_torch.testing import scenario_family
+
+    cfg = SolverConfig(dtype="float32", platform="cpu", pad_to=8, **SOLVE_MODES[mode])
+    providers = scenario_family(12, 30, 7, 3)
+    with monkeypatch.context() as eager_chunks:
+        eager_chunks.setattr(graphs, "DEVICE_TYPES", ("cuda",))
+        eager = [_solve_summary(solve_relaxation(p, cfg)) for p in providers]
+    for call in range(2):
+        captures = graphs.CAPTURES
+        assert [_solve_summary(solve_relaxation(p, cfg)) for p in providers] == eager
+        if call == 0:
+            assert graphs.CAPTURES == len(graphs.chunks()._entries) > 0
+        else:
+            assert graphs.CAPTURES == captures
+    assert graphs.REPLAYS == 2 * sum(summary[-1] for summary in eager)
+    assert graphs.EVICTIONS == 0
+
+
+def test_the_end_of_a_solve_trims_the_process_cache_to_its_bound(recording,
+                                                               monkeypatch):
+    """At the end of every solve the process-wide cache of chunks evicts
+    its least recently used entries down to its bound in bytes, to no
+    entry if need be: with a bound that holds one shape's graphs and
+    buffers, a solve of another shape before it leaves nothing behind and
+    the last shape's entries stay; with a bound below one LP's, nothing of
+    the solve stays.  Every solve gives its eager result."""
     from relp_tpu_torch.testing import scenario_family
 
     cfg = SolverConfig(platform="cpu", pad_to=8)
-    providers = scenario_family(12, 30, 7, 3)
-    eager = [solve_relaxation(p, cfg) for p in providers]
-    monkeypatch.setattr(graphs, "Graph", RecordingGraph)
-    monkeypatch.setattr(graphs, "DEVICE_TYPES", ("cuda", "cpu"))
-    monkeypatch.setattr(graphs, "CAPTURES", 0)
-    monkeypatch.setattr(graphs, "REPLAYS", 0)
-    cache = graphs.ChunkGraphs()
-    with graphs.shared(cache):
-        captured = [solve_relaxation(p, cfg) for p in providers]
-        assert graphs.cache() is cache
-    assert graphs.cache() is not cache
-    assert [_solve_summary(r) for r in captured] == [_solve_summary(r) for r in eager]
-    assert graphs.CAPTURES == len(cache._entries) < graphs.REPLAYS
-    assert graphs.REPLAYS == sum(r.stats.chunks for r in captured)
+    small, large = scenario_family(12, 30, 7, 1)[0], scenario_family(20, 44, 5, 1)[0]
+    with monkeypatch.context() as eager_chunks:
+        eager_chunks.setattr(graphs, "DEVICE_TYPES", ("cuda",))
+        eager = {p: _solve_summary(solve_relaxation(p, cfg)) for p in (small, large)}
+
+    def solve(provider, bound):
+        graphs.chunks().max_bytes = bound
+        assert _solve_summary(solve_relaxation(provider, cfg)) == eager[provider]
+
+    solve(large, None)
+    cache = graphs.chunks()
+    keys, held = set(cache._entries), cache.nbytes()
+    assert keys and held > 0
+    graphs._CHUNKS = None
+    solve(small, held)
+    solve(large, held)
+    cache = graphs.chunks()
+    assert set(cache._entries) == keys and cache.nbytes() == held
+    assert graphs.EVICTIONS > 0
+    solve(small, 1)
+    assert not cache._entries and not cache._slots and cache.nbytes() == 0
 
 
 @pytest.mark.parametrize("kind", BODY_KINDS)
@@ -492,12 +588,13 @@ def test_replayed_pdhg_chunks_follow_changed_k0_tau_and_sigma(recording):
 
 
 def _captured_solve(monkeypatch, solve):
-    """``solve()`` with the engines' chunks captured (the stand-in), and the
-    replays it made."""
+    """``solve()`` with the engines' chunks captured (the stand-in) into an
+    empty process-wide cache, and the replays it made."""
     with monkeypatch.context() as patched:
         patched.setattr(graphs, "Graph", RecordingGraph)
         patched.setattr(graphs, "DEVICE_TYPES", ("cuda", "cpu"))
         patched.setattr(graphs, "REPLAYS", 0)
+        patched.setattr(graphs, "_CHUNKS", None)
         result = solve()
         return result, graphs.REPLAYS
 

@@ -6,7 +6,8 @@ overflow; recording off; the ``gc`` hook; the mapping of the span clock
 onto a ``torch.profiler`` trace by ``epoch_offset_ns``; no JAX import.  The
 boundaries: a ``solve_general_form``'s spans in order, with ``chunk`` and
 ``chunk.exit`` alternating; ``SolveStats.certify_time_s`` and
-``graphs.CAPTURE_SECONDS`` as the sums of their spans; a ``solve_mip``'s
+``graphs.CAPTURE_SECONDS`` as the sums of their spans; the ``solve``
+span's count of captures, none on a second solve of a shape; a ``solve_mip``'s
 ``bb.search`` around ``batch`` around ``certify``.  The benchmark's six
 readers of the spans (``portbench/metrics``) against hand-computed values.
 """
@@ -95,7 +96,8 @@ def test_the_spans_of_a_solve_in_order():
     request = spans[0]
     assert all(s.request == request.request for s in spans)
     solve = spans[3]
-    assert solve.counts == {"pivots": result.stats.iterations, "chunks": result.stats.chunks}
+    assert solve.counts == {"pivots": result.stats.iterations, "chunks": result.stats.chunks,
+                            "captures": 0}  # the CPU runs its chunks eagerly
     chunks = [s for s in spans if s.name == "chunk"]
     assert all(s.parent == solve.id for s in chunks)
     assert sum(s.counts["pivots"] for s in chunks) == result.stats.iterations
@@ -117,6 +119,7 @@ def test_capture_seconds_are_the_sum_of_the_capture_spans(monkeypatch):
     chunk, tagged with the body it captured."""
     monkeypatch.setattr(graphs, "Graph", RecordingGraph)
     monkeypatch.setattr(graphs, "DEVICE_TYPES", ("cuda", "cpu"))
+    monkeypatch.setattr(graphs, "_CHUNKS", None)
     captures0, seconds0 = graphs.CAPTURES, graphs.CAPTURE_SECONDS
     solve_general_form(load_general_form(str(KNAP6)), SolverConfig(**SMALL))
     spans = trace.spans()
@@ -126,6 +129,24 @@ def test_capture_seconds_are_the_sum_of_the_capture_spans(monkeypatch):
         sum((s.end - s.start) / 1e9 for s in captured), rel=1e-12, abs=1e-12)
     chunk_ids = {s.id for s in spans if s.name == "chunk"}
     assert all(s.parent in chunk_ids and s.tag == "run_chunk" for s in captured)
+
+
+def test_the_solve_span_counts_the_captures_of_its_attempt(monkeypatch):
+    """The solve span's captures: the graph captures its attempt made, at
+    least one on the first solve of a shape and none on a second solve of
+    it, whose chunks replay from the process-wide cache."""
+    monkeypatch.setattr(graphs, "Graph", RecordingGraph)
+    monkeypatch.setattr(graphs, "DEVICE_TYPES", ("cuda", "cpu"))
+    monkeypatch.setattr(graphs, "_CHUNKS", None)
+    counts = []
+    for _ in range(2):
+        trace.reset()
+        captures0 = graphs.CAPTURES
+        solve_general_form(load_general_form(str(KNAP6)), SolverConfig(**SMALL))
+        solve, = [s for s in trace.spans() if s.name == "solve"]
+        assert solve.counts["captures"] == graphs.CAPTURES - captures0
+        counts.append(solve.counts["captures"])
+    assert counts[0] >= 1 and counts[1] == 0
 
 
 def test_a_search_holds_its_batches_and_their_certification():
